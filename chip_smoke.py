@@ -4,17 +4,20 @@
     python3 chip_smoke.py
 
 Builds the fused CUDA kernels from source_tpu_torch/csrc/ (into
-source_tpu_torch/_build/), holds each against its plain PyTorch version on
-the card, runs the furnace check, and drives the main path: the glass
-Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24 iterations,
-through ``compile_scene`` -> ``render_batch``, once through the whole-span
-kernel and once through the per-bounce kernel. Every phase prints one JSON
-line; any failure exits non-zero. Without a CUDA device the script exits 2
-and prints no result. ``--phases env,kernels`` runs a subset while developing
-(the last line is then not a pass).
+source_tpu_torch/_build/), forward and adjoint, holds each against its plain
+PyTorch version on the card, runs the furnace check, and drives the two main
+paths on the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth
+16, 24 iterations: forward through ``compile_scene`` -> ``render_batch``, and
+the training step through ``render_loss_and_grads``, each once through the
+whole-span kernels and once through the per-bounce kernels. Every phase
+prints one JSON line; any failure exits non-zero. Without a CUDA device the
+script exits 2 and prints no result. ``--phases grad_kernels,step`` runs a
+subset while developing (the last line is then not a pass).
 """
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,6 +36,15 @@ MAX_FLIP = 0.005            # lanes per bounce that may choose differently
 TORUS_BOUNCE = (1e-2, 0.01)  # after one bounce
 TORUS_SPAN = (5e-2, 0.02)    # after a span, which carries the offset on
 F64_FACTOR = 2.0            # kernel's distance from float64 over the plain version's
+# adjoint kernels: per-lane cotangents within RTOL/ATOL (scaled by the largest
+# incoming cotangent) on all but MAX_FLIP of the lanes (a lane within rounding
+# of a threshold the bitfield does not store -- which root, which face, flip --
+# may reverse another branch than the plain version); the table cotangent
+# within TAB_TOL of its largest entry per table section: shared-memory float
+# atomics add in an order that changes from run to run
+TAB_TOL = 2e-4
+ROUTE_TOL = 2e-4            # gradient fields between the two span routes
+EULER_TOL = 1e-2            # sum(value * gradient) over emission rows vs 2 loss
 N_ZOO = 65536
 FLAGSHIP = dict(width=512, height=512, bins=15, max_depth=16, max_iters=24)
 
@@ -168,15 +180,20 @@ def mean_within(a, b, n_sigma=3.0):
     return diff, se, diff <= n_sigma * se + 1e-7
 
 
-def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused):
+def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
+                general=False):
     """Hold fused_bounce_fwd and fused_span_fwd against their plain versions
-    on one scene; returns a dict of measurements per kernel."""
+    on one scene (``general``: with every leaf as a general local-frame
+    record, as the differentiable route traces it); returns a dict of
+    measurements per kernel."""
     scene = T.compile_scene(world, T.SpectralConfig(375.0, 740.0, bins))
-    spec = fused.fused_spec(scene, cfg)
-    if spec is None:
+    tables = fused.scene_tables(scene, cfg, general=general)
+    if tables is None:
         fail(f"{name}: scene is outside the fused class")
-    tab = fused.pack_tabvec(scene, spec)
-    desc = torch.as_tensor(fused.spec_descriptor(spec), device="cuda")
+    spec, entry = tables
+    desc = entry["desc"]
+    with torch.no_grad():
+        tab = fused.pack_tabvec(scene, spec)
     N = o.shape[0]
     state = T.init_rays(torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda(),
                         bins)
@@ -277,15 +294,27 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused):
 
 def phase_env(fused):
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        logs = list(pool.map(lambda b: fused.build_library(b, verbose=True)[1],
-                             (FLAGSHIP["bins"], 5)))
+    jobs = [(b, which) for which in ("fwd", "bwd") for b in (FLAGSHIP["bins"], 5)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = list(pool.map(
+            lambda j: fused.build_library(j[0], j[1], verbose=True)[1], jobs))
     build_s = time.time() - t0
-    ptxas = [ln.strip() for ln in logs[0].splitlines()
-             if "registers" in ln or "spill" in ln]
+
+    def ptxas(log):
+        """ptxas -v lines per kernel: registers, stack frame, spills."""
+        out, name = {}, None
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                name = ln.split("'")[1]
+            elif name and ("registers" in ln or "spill" in ln):
+                out.setdefault(name, []).append(
+                    ln.split(":", 1)[-1].strip())
+        return out
+
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
-         nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_b15=ptxas)
+         nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
+         ptxas_bwd_b15=ptxas(logs[2]))
 
 
 def phase_kernels(T, fused, scenes):
@@ -293,6 +322,10 @@ def phase_kernels(T, fused, scenes):
     o, d = scenes.pinhole_rays(FLAGSHIP["width"], FLAGSHIP["height"])
     cornell = kernel_case("cornell", scenes.cornell_box(glass=True),
                           FLAGSHIP["bins"], cfg, o, d, (8, 24), 11, T, fused)
+    # the same box as the differentiable route traces it: general records
+    general = kernel_case("cornell_general", scenes.cornell_box(glass=True),
+                          FLAGSHIP["bins"], cfg, o, d, (24,), 13, T, fused,
+                          general=True)
     o, d = scenes.scatter_rays(N_ZOO, seed=1)
     zoo = kernel_case("zoo", scenes.zoo(), 5, T.RayConfig(max_depth=6), o, d,
                       (8, 24), 12, T, fused)
@@ -300,8 +333,293 @@ def phase_kernels(T, fused, scenes):
                                    torus_bounce=TORUS_BOUNCE,
                                    torus_span=TORUS_SPAN,
                                    f64_factor=F64_FACTOR),
-         fused_bounce_fwd=[cornell["fused_bounce_fwd"], zoo["fused_bounce_fwd"]],
-         fused_span_fwd=cornell["fused_span_fwd"] + zoo["fused_span_fwd"])
+         fused_bounce_fwd=[cornell["fused_bounce_fwd"],
+                           general["fused_bounce_fwd"], zoo["fused_bounce_fwd"]],
+         fused_span_fwd=(cornell["fused_span_fwd"] + general["fused_span_fwd"]
+                         + zoo["fused_span_fwd"]))
+    return cornell
+
+
+def table_sections(spec, fused):
+    """(name, start, stop) of the table vector's sections."""
+    cuts = [0, fused._mat_base(spec), fused._imp_base(spec),
+            fused._check_base(spec), fused.tab_size(spec)]
+    names = ("leaves", "materials", "importance", "checker")
+    return [(n, a, b) for n, a, b in zip(names, cuts, cuts[1:]) if b > a]
+
+
+def compare_table(spec, fused, got, ref):
+    """Largest deviation of a table cotangent per section, as a fraction of
+    the section's largest reference entry."""
+    res, ok = {}, bool(torch.isfinite(got).all())
+    for name, a, b in table_sections(spec, fused):
+        scale = max(float(ref[a:b].abs().max()), 1e-6)
+        res[name] = float((got[a:b] - ref[a:b]).abs().max()) / scale
+        ok &= res[name] <= TAB_TOL
+    return res, ok
+
+
+def compare_cots(got, ref, live, cot_scale, loose=None):
+    """Per-lane deviation of the state cotangents (go, gd, gthr) on the
+    ``live`` lanes: the fraction of lanes beyond RTOL/ATOL (ATOL scaled by
+    the incoming cotangents' magnitude), the largest deviation among the
+    lanes within, and the largest on the ``loose`` (torus) lanes."""
+    bad = torch.zeros_like(live)
+    worst = torch.zeros(live.shape, device=live.device)
+    for g, r in zip(got, ref):
+        if not bool(torch.isfinite(g).all()):
+            return dict(beyond=1.0, max_abs=float("nan"), torus_abs=0.0)
+        dev = (g - r).abs()
+        bad |= (dev > ATOL * cot_scale + RTOL * r.abs()).any(0)
+        worst = torch.maximum(worst, dev.max(0).values)
+    strict = live if loose is None else live & ~loose
+    inside = strict & ~bad
+    res = dict(
+        beyond=float((bad & strict).sum()) / max(int(strict.sum()), 1),
+        max_abs=float(worst[inside].max()) if bool(inside.any()) else 0.0,
+        torus_abs=0.0)
+    if loose is not None and bool((live & loose).any()):
+        res["torus_abs"] = float(worst[live & loose].max())
+        res["torus_beyond"] = float((bad & live & loose).sum()) / int(
+            (live & loose).sum())
+    return res
+
+
+@contextlib.contextmanager
+def converged_quartic(newton_iters=14):
+    """Within the block the port's quartic solver polishes its roots with
+    ``newton_iters`` Newton steps whatever its caller asks for (the torus hit
+    asks for 3): in float64 that is the root itself, and autograd of it the
+    root's true derivative."""
+    from source_tpu_torch.core.math import polyroots
+    solve = polyroots.solve_quartic_components
+    polyroots.solve_quartic_components = (
+        lambda a, b, c, d, e, newton_iters_=2, **kw:
+        solve(a, b, c, d, e, newton_iters=newton_iters))
+    try:
+        yield
+    finally:
+        polyroots.solve_quartic_components = solve
+
+
+def torus_cots_against_f64(got, ref, r64, on, cot_scale):
+    """How far the adjoint kernel and its plain version each stand from a
+    converged float64 evaluation (``converged_quartic``) on the lanes ``on``
+    (those that hit a torus), per lane over go, gd, gthr: the share of lanes
+    beyond the strict tolerance, the 99th percentile and the worst lane.
+
+    Ferrari's f32 seeds are poor (median error 0.2 in the hit distance on
+    unit-scale tori) and three Newton steps do not always converge. The plain
+    version's autograd differentiates the seed too; the kernel reverses the
+    Newton steps and takes the seed as a constant. The two differ by the
+    seed's derivative times the steps' contraction (median 5e-4, a tenth of
+    the lanes above 0.04), and neither is the root's derivative: so they are
+    held to the converged evaluation, not to each other. The cotangent of a
+    root also grows like 1 / P'(root) towards a grazing hit, so single lanes
+    are unbounded in all three evaluations. ``ok`` holds the kernel's share
+    beyond strict to F64_FACTOR times the plain version's plus MAX_FLIP (lanes
+    on which a choice the bitfield does not store, here which root, falls the
+    other way), and its 99th percentile to F64_FACTOR times the plain
+    version's."""
+    n = int(on.sum())
+    if n == 0:
+        return dict(lanes=0, ok=True)
+    res = dict(lanes=n)
+    for key, a, b in (("kernel_vs_plain", got, ref), ("kernel_vs_f64", got, r64),
+                      ("plain_vs_f64", ref, r64)):
+        dev = torch.zeros(n, dtype=torch.float64, device=on.device)
+        bad = torch.zeros(n, dtype=torch.bool, device=on.device)
+        for x, y in zip(a, b):
+            d = (x[:, on].double() - y[:, on].double()).abs()
+            bad |= (d > ATOL * cot_scale + RTOL * y[:, on].double().abs()).any(0)
+            dev = torch.maximum(dev, d.max(0).values)
+        res[key] = dict(worst=float(dev.max()),
+                        q99=float(torch.quantile(dev, 0.99)),
+                        beyond=float(bad.double().mean()))
+    k, p = res["kernel_vs_f64"], res["plain_vs_f64"]
+    res["ok"] = (k["beyond"] <= F64_FACTOR * p["beyond"] + MAX_FLIP
+                 and k["q99"] <= F64_FACTOR * p["q99"] + ATOL * cot_scale)
+    return res
+
+
+def grad_case(name, world, bins, cfg, o, d, seed, T, fused):
+    """Hold fused_bounce_bwd and fused_span_bwd against their plain versions
+    (and against each other) on one scene at the general spec; returns a dict
+    of measurements per kernel."""
+    scene = T.compile_scene(world, T.SpectralConfig(375.0, 740.0, bins))
+    spec, entry = fused.scene_tables(scene, cfg, general=True)
+    desc = entry["desc"]
+    with torch.no_grad():
+        tab = fused.pack_tabvec(scene, spec)
+    N = o.shape[0]
+    n_steps = cfg.max_iters
+    st0 = fused.pack_state(T.init_rays(
+        torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda(), bins))
+    rng = np.random.RandomState(seed)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    u_all = torch.as_tensor(
+        rng.random_sample((n_steps, fused.N_UNIFORMS, N)).astype(np.float32)).cuda()
+    cots = dict(go=randn(3, N), gd=randn(3, N), gthr=randn(bins, N),
+                g_rad=randn(bins, N))
+    cot_scale = float(max(c.abs().max() for c in cots.values()))
+    has_torus = any(leaf[0] == 5 for leaf in spec.leaves)
+
+    # entry state and bitfield of every bounce, by the per-bounce kernel
+    entries, st = [], st0
+    for k in range(n_steps):
+        new, bits = fused.fused_bounce_fwd(spec, tab, desc, st, u_all[k])
+        entries.append((st, bits))
+        st = new
+    k3_st, k3_bits = fused.fused_span_fwd(spec, tab, desc, st0, u_all)
+    if not torch.equal(k3_bits, torch.stack([b for _, b in entries])):
+        fail(f"{name}: span and per-bounce forward kernels disagree on bits")
+    res = {}
+
+    # --- fused_bounce_bwd: the first bounce and a mid-path bounce
+    worst = dict(beyond=0.0, max_abs=0.0, torus_abs=0.0, torus_beyond=0.0)
+    tab_dev, f64 = {}, []
+    for k in (0, 3):
+        e, bits = entries[k]
+        args = (e["o"], e["d"], e["thr"], e["aux"], u_all[k], bits,
+                cots["go"], cots["gd"], cots["gthr"], cots["g_rad"])
+        got = fused.fused_bounce_bwd(spec, tab, desc, *args)
+        torch.cuda.synchronize()
+        ref = fused.bounce_bwd_plain(spec, tab, *args)
+        live = bits != 0
+        for g, c in zip(got[:3], (cots["go"], cots["gd"], cots["gthr"])):
+            if not torch.equal(g[:, ~live], c[:, ~live]):
+                fail(f"{name} fused_bounce_bwd[{k}]: a lane with a zero "
+                     "bitfield is not a pass-through")
+        loose = torus_lanes(spec, bits) if has_torus else None
+        dev = compare_cots(got[:3], ref[:3], live, cot_scale, loose)
+        if dev["beyond"] > MAX_FLIP or not np.isfinite(dev["max_abs"]):
+            fail(f"{name} fused_bounce_bwd[{k}]: state cotangents {dev}")
+        if has_torus:
+            # torus lanes beside a float64 evaluation of the plain version
+            # with the quartic polished to convergence
+            with converged_quartic():
+                r64 = fused.bounce_bwd_plain(
+                    spec, tab.double(),
+                    *[a.double() if a.is_floating_point() else a for a in args])
+            on = live & loose
+            rec = torus_cots_against_f64(got[:3], ref[:3], r64[:3], on, cot_scale)
+            f64.append(rec)
+            if not rec.pop("ok"):
+                fail(f"{name} fused_bounce_bwd[{k}]: on torus lanes the kernel "
+                     f"is further from float64 than the plain version: {rec}")
+            # the table is held on the other lanes: cotangents are linear
+            # in the table term, so zeroed lanes add nothing
+            keep = (~on).float()
+            masked = [a * keep if i >= 6 else a for i, a in enumerate(args)]
+            got = fused.fused_bounce_bwd(spec, tab, desc, *masked)
+            ref = fused.bounce_bwd_plain(spec, tab, *masked)
+        tdev, tok = compare_table(spec, fused, got[3], ref[3])
+        if not tok:
+            fail(f"{name} fused_bounce_bwd[{k}]: table cotangent {tdev}")
+        worst = {m: max(worst[m], dev.get(m, 0.0)) for m in worst}
+        tab_dev = {m: max(tab_dev.get(m, 0.0), v) for m, v in tdev.items()}
+    e, bits = entries[0]
+    args = (e["o"], e["d"], e["thr"], e["aux"], u_all[0], bits,
+            cots["go"], cots["gd"], cots["gthr"], cots["g_rad"])
+    live_n = int((bits != 0).sum())
+    ms = time_ms(lambda: fused.fused_bounce_bwd(spec, tab, desc, *args), 20)
+    plain_ms = time_ms(lambda: fused.bounce_bwd_plain(spec, tab, *args), 1)
+    flops = fused.bounce_bwd_flops(spec)
+    table_bytes = 4 * (2 * tab.numel() + desc.numel())
+    # entry state, uniforms, bitfield, 6 + 2B cotangent rows in, 6 + B out
+    nbytes = table_bytes + 4 * N * (
+        (8 + bins) + fused.N_UNIFORMS + 1 + (6 + 2 * bins) + (6 + bins))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, live_n * flops / F32_FLOPS * 1e3
+    res["fused_bounce_bwd"] = dict(
+        scene=name, n=N, bins=bins, live=live_n, **worst, table=tab_dev, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops)
+    if f64:
+        res["fused_bounce_bwd"]["torus_lanes"] = f64
+
+    # --- fused_span_bwd: against the plain version, against the chain of
+    # per-bounce adjoint kernels, and its replay against the forward kernel
+    span_args = (st0, u_all, k3_bits, cots["go"], cots["gd"], cots["gthr"],
+                 cots["g_rad"])
+    got = fused.fused_span_bwd(spec, tab, desc, *span_args, return_replay=True)
+    torch.cuda.synchronize()
+    want = torch.cat([k3_st["o"], k3_st["d"], k3_st["thr"], k3_st["aux"]])
+    if not torch.equal(got[4], want):
+        fail(f"{name} fused_span_bwd: its forward replay does not end in the "
+             "forward kernel's state bit for bit")
+    chain = (cots["go"], cots["gd"], cots["gthr"])
+    chain_tab = torch.zeros_like(tab)
+    for k in range(n_steps - 1, -1, -1):
+        e, bits = entries[k]
+        *chain, gt = fused.fused_bounce_bwd(
+            spec, tab, desc, e["o"], e["d"], e["thr"], e["aux"], u_all[k],
+            bits, *chain, cots["g_rad"])
+        chain_tab += gt
+    ref = fused.span_bwd_plain(spec, tab, {k: st0[k] for k in
+                                           ("o", "d", "thr", "aux")},
+                               *span_args[1:])
+    every = torch.ones(N, dtype=torch.bool, device="cuda")
+    loose = torus_lanes(spec, k3_bits) if has_torus else None
+    vs_chain = compare_cots(got[:3], chain, every, cot_scale)
+    vs_plain = compare_cots(got[:3], ref[:3], every, cot_scale, loose)
+    tab_chain, ok_chain = compare_table(spec, fused, got[3], chain_tab)
+    tab_plain, ok_plain = compare_table(spec, fused, got[3], ref[3])
+    # kernel against kernel: the same arithmetic, so every lane agrees and
+    # the table differs by the atomics' summation order only
+    if vs_chain["beyond"] > 0.0 or not ok_chain:
+        fail(f"{name} fused_span_bwd against {n_steps} fused_bounce_bwd: "
+             f"{vs_chain} table {tab_chain}")
+    if vs_plain["beyond"] > MAX_FLIP or not np.isfinite(vs_plain["max_abs"]):
+        fail(f"{name} fused_span_bwd against its plain version: {vs_plain}")
+    if not ok_plain and not has_torus:
+        fail(f"{name} fused_span_bwd: table cotangent against the plain "
+             f"version {tab_plain}")
+    dead = ~(k3_bits != 0).any(0)
+    for g, c in zip(got[:3], (cots["go"], cots["gd"], cots["gthr"])):
+        if not torch.equal(g[:, dead], c[:, dead]):
+            fail(f"{name} fused_span_bwd: a lane that entered no bounce is "
+                 "not a pass-through")
+    entered = N + int(((k3_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
+    live_n = int((k3_bits != 0).sum())
+    ms = time_ms(lambda: fused.fused_span_bwd(spec, tab, desc, *span_args), 3)
+    plain_ms = time_ms(lambda: fused.span_bwd_plain(
+        spec, tab, {k: st0[k] for k in ("o", "d", "thr", "aux")},
+        *span_args[1:]), 1)
+    # st0, cotangents in and out once per ray; uniforms, bitfield and the
+    # saved entry state (written, then read) once per entered bounce
+    nbytes = table_bytes + 4 * N * ((8 + bins) + (6 + 2 * bins) + (6 + bins)) \
+        + 4 * entered * (fused.N_UNIFORMS + 1 + 2 * (8 + bins))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, live_n * (
+        flops + fused.bounce_flops(spec)) / F32_FLOPS * 1e3
+    res["fused_span_bwd"] = dict(
+        scene=name, n=N, bins=bins, n_steps=n_steps, live=live_n,
+        entered=entered, vs_plain=vs_plain, vs_chain=vs_chain,
+        table_vs_plain=tab_plain, table_vs_chain=tab_chain,
+        max_abs=vs_plain["max_abs"], replay_equal=True, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops,
+        scratch_bytes=4 * n_steps * (8 + bins) * N)
+    return res
+
+
+def phase_grad_kernels(T, fused, scenes):
+    cfg = T.RayConfig(max_depth=FLAGSHIP["max_depth"], max_iters=24)
+    o, d = scenes.pinhole_rays(FLAGSHIP["width"], FLAGSHIP["height"])
+    cornell = grad_case("cornell", scenes.cornell_box(glass=True),
+                        FLAGSHIP["bins"], cfg, o, d, 21, T, fused)
+    o, d = scenes.scatter_rays(N_ZOO, seed=1)
+    zoo = grad_case("zoo", scenes.zoo(), 5,
+                    T.RayConfig(max_depth=6, max_iters=24), o, d, 22, T, fused)
+    emit("grad_kernels",
+         tolerance=dict(rtol=RTOL, atol=ATOL, max_flip=MAX_FLIP, table=TAB_TOL,
+                        f64_factor=F64_FACTOR),
+         fused_bounce_bwd=[cornell["fused_bounce_bwd"], zoo["fused_bounce_bwd"]],
+         fused_span_bwd=[cornell["fused_span_bwd"], zoo["fused_span_bwd"]])
     return cornell
 
 
@@ -320,7 +638,22 @@ def phase_furnace(T, scenes):
         fail("furnace: radiance is not exactly 1.0 in every bin")
 
 
-def phase_main(T, fused, scenes):
+KERNELS = ("fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
+           "fused_span_bwd")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counts(fused):
+    for k in KERNELS:
+        getattr(fused, k).launches = 0
+
+
+def read_counts(fused):
+    return {k: getattr(fused, k).launches for k in KERNELS}
+
+
+def flagship(T, fused, scenes):
+    """The flagship scene, configuration, rays and one fixed set of uniforms."""
     bins = FLAGSHIP["bins"]
     scene = T.compile_scene(scenes.cornell_box(glass=True),
                             T.SpectralConfig(375.0, 740.0, bins))
@@ -331,31 +664,48 @@ def phase_main(T, fused, scenes):
         compact_schedule=(), spectral_dtype="bfloat16")
     o, d = scenes.pinhole_rays(FLAGSHIP["width"], FLAGSHIP["height"])
     o, d = torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
-    n = o.shape[0]
-    u_fixed = torch.rand((cfg.max_iters, n, fused.N_UNIFORMS), device="cuda",
+    u_fixed = torch.rand((cfg.max_iters, o.shape[0], fused.N_UNIFORMS),
+                         device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(5))
 
     def same_u(start, n_steps, n_lanes):
         return u_fixed[start:start + n_steps, :n_lanes]
 
+    return scene, cfg, o, d, u_fixed, same_u
+
+
+def stage_ms(fn, reps=5):
+    """Mean host milliseconds of ``fn()``, synchronised, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_main(T, fused, scenes):
+    bins = FLAGSHIP["bins"]
+    scene, cfg, o, d, u_fixed, same_u = flagship(T, fused, scenes)
+    n = o.shape[0]
+
     # the main path, once per kernel route; each route's launch counts are
     # set to 0 just before it and read just after, and must be its own
     # kernel's alone
     def counted(span):
-        fused.fused_span_fwd.launches = 0
-        fused.fused_bounce_fwd.launches = 0
+        reset_counts(fused)
         st = T.render_batch(scene, cfg, o, d, u_all=same_u, span=span)
         torch.cuda.synchronize()
-        return st, {"fused_span_fwd": fused.fused_span_fwd.launches,
-                    "fused_bounce_fwd": fused.fused_bounce_fwd.launches}
+        return st, read_counts(fused)
 
     multi, n_span = counted("multi")
     per, n_per = counted("perbounce")
     launches = {"span": n_span, "perbounce": n_per}
-    if n_span != {"fused_span_fwd": 1, "fused_bounce_fwd": 0}:
+    if n_span != dict(NO_LAUNCHES, fused_span_fwd=1):
         fail(f"main: the span route must launch fused_span_fwd once and "
              f"nothing else: {launches}")
-    if (n_per["fused_span_fwd"] != 0
+    if (n_per != dict(NO_LAUNCHES, fused_bounce_fwd=n_per["fused_bounce_fwd"])
             or not 1 <= n_per["fused_bounce_fwd"] <= cfg.max_iters):
         fail(f"main: the per-bounce route must launch fused_bounce_fwd once "
              f"per bounce and nothing else: {launches}")
@@ -387,25 +737,17 @@ def phase_main(T, fused, scenes):
     wall_per, seg_per = timed("perbounce")
 
     # where one span-route render_batch spends its wall time, stage by stage
-    def stage_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / 5 * 1e3
+    def tables():
+        spec, entry = fused.scene_tables(scene, cfg)
+        return spec, entry["desc"], fused.forward_table(scene, spec, entry)
 
-    spec = fused.fused_spec(scene, cfg)
-    tab = fused.pack_tabvec(scene, spec)
-    desc = torch.as_tensor(fused.spec_descriptor(spec), device="cuda")
+    spec, desc, tab = tables()
     state = T.init_rays(o, d, bins, spectral_dtype=cfg.spectral_dtype)
     st, u_p = fused.pack_state(state), fused.pack_u(u_fixed)
     out, _ = fused.fused_span_fwd(spec, tab, desc, st, u_p)
     stages = dict(
-        tables_ms=stage_ms(lambda: (
-            fused.pack_tabvec(scene, fused.fused_spec(scene, cfg)),
-            torch.as_tensor(fused.spec_descriptor(spec), device="cuda"))),
+        # spec, descriptor and table are kept on the scene after the first call
+        tables_ms=stage_ms(tables),
         uniforms_ms=stage_ms(lambda: torch.rand(
             (cfg.max_iters, n, fused.N_UNIFORMS), device="cuda")),
         pack_ms=stage_ms(lambda: (
@@ -439,19 +781,187 @@ def phase_main(T, fused, scenes):
     return launches
 
 
-def kernels_line(cornell, launches):
-    """The per-kernel summary at the main path's shapes (the Cornell box,
-    262144 rays, 15 bins; the span kernel over all 24 bounces). Each kernel's
-    launches are those of its own route's run of the main path."""
+def phase_step(T, fused, scenes):
+    """The training step of the flagship: ``render_loss_and_grads`` against a
+    zero target, once per span route."""
+    from source_tpu_torch.optical.material.base import MAT_EMITTER
+    bins = FLAGSHIP["bins"]
+    scene, cfg, o, d, u_fixed, same_u = flagship(T, fused, scenes)
+    n = o.shape[0]
+    target = torch.zeros((n, bins), device="cuda")
+    want = {"perbounce": dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
+                              fused_bounce_bwd=cfg.max_iters),
+            "multi": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1)}
+    emit_rows = [m for m, t in enumerate(scene.mat_types) if t == MAT_EMITTER]
+    runs, launches, euler, peak = {}, {}, {}, {}
+    for span in ("perbounce", "multi"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        loss, grads = T.render_loss_and_grads(scene, cfg, o, d, target,
+                                              u_all=same_u, span=span)
+        torch.cuda.synchronize()
+        launches[span] = read_counts(fused)
+        peak[span] = torch.cuda.max_memory_allocated() - base
+        if launches[span] != want[span]:
+            fail(f"step[{span}]: launches {launches[span]}, want {want[span]}")
+        for f, g in grads.items():
+            if g.shape != getattr(scene, f).shape or not bool(
+                    torch.isfinite(g).all()):
+                fail(f"step[{span}]: gradient of {f} has the wrong shape or "
+                     "is not finite")
+        for f in ("leaf_w2l", "leaf_params", "mat_spectra"):
+            if not bool((grads[f] != 0).any()):
+                fail(f"step[{span}]: gradient of {f} is all zero")
+        # radiance is homogeneous of degree 1 in the emitters' emission rows,
+        # so against a zero target sum(value * gradient) over them is 2 loss
+        # (to the rounding of the bf16 radiance the loss is taken on)
+        lhs = float(sum((scene.mat_spectra[m, 0] * grads["mat_spectra"][m, 0])
+                        .sum() for m in emit_rows))
+        euler[span] = lhs / (2.0 * float(loss))
+        if abs(euler[span] - 1.0) > EULER_TOL:
+            fail(f"step[{span}]: Euler identity on the emission rows: "
+                 f"sum(value * gradient) / (2 loss) = {euler[span]}")
+        if any(t.requires_grad for t in (scene.leaf_w2l, scene.mat_spectra)):
+            fail("step: the caller's scene was left requiring gradients")
+        runs[span] = (loss, grads)
+    if float(runs["multi"][0]) != float(runs["perbounce"][0]):
+        fail(f"step: the routes' losses differ on the same uniforms: "
+             f"{float(runs['multi'][0])} {float(runs['perbounce'][0])}")
+    route_dev = {}
+    for f in runs["multi"][1]:
+        a, b = runs["multi"][1][f], runs["perbounce"][1][f]
+        scale = max(float(a.abs().max()), 1e-6)
+        route_dev[f] = float((a - b).abs().max()) / scale
+        if route_dev[f] > ROUTE_TOL:
+            fail(f"step: gradient of {f} differs between the routes by "
+                 f"{route_dev[f]} of its largest entry")
+
+    def timed(span):
+        walls = []
+        for _ in range(6):
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.render_loss_and_grads(scene, cfg, o, d, target, gen, span=span)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls[1:]))
+
+    walls = {span: timed(span) for span in ("perbounce", "multi")}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    segments = int(T.render_batch(scene, cfg, o, d, gen).segments)
+
+    # where one step spends its time, stage by stage
+    spec, entry = fused.scene_tables(scene, cfg, general=True)
+    desc = entry["desc"]
+    leaves = [getattr(scene, f).detach().requires_grad_(True)
+              for f in fused.TABLE_FIELDS]
+    diff_scene = dataclasses.replace(scene, **dict(zip(fused.TABLE_FIELDS, leaves)))
+    tab_g = fused.pack_tabvec(diff_scene, spec)
+    tab = tab_g.detach()
+    state = T.init_rays(o, d, bins, spectral_dtype=cfg.spectral_dtype)
+    st, u_p = fused.pack_state(state), fused.pack_u(u_fixed)
+    out, bits = fused.fused_span_fwd(spec, tab, desc, st, u_p)
+    cot = [torch.zeros_like(st[k]) for k in ("o", "d", "thr")]
+    g_rad = torch.rand_like(st["rad"])
+    g_tab = torch.rand_like(tab)
+
+    def per_fwd():
+        cur, saved = st, []
+        for u in u_p:
+            new, b = fused.fused_bounce_fwd(spec, tab, desc, cur, u)
+            saved.append((cur, b))
+            cur = new
+        return saved
+
+    saved = per_fwd()
+
+    def per_bwd():
+        c = cot
+        for k in range(len(saved) - 1, -1, -1):
+            e, b = saved[k]
+            *c, _ = fused.fused_bounce_bwd(spec, tab, desc, e["o"], e["d"],
+                                           e["thr"], e["aux"], u_p[k], b, *c,
+                                           g_rad)
+
+    # the per-bounce adjoint kernel alone at a few depths of the path: its
+    # time by CUDA events beside the rays that take part
+    by_bounce = []
+    for k in (0, 1, 2, 4, 8, 16):
+        e, b = saved[k]
+        by_bounce.append(dict(
+            bounce=k, live=int((b != 0).sum()),
+            ms=time_ms(lambda: fused.fused_bounce_bwd(
+                spec, tab, desc, e["o"], e["d"], e["thr"], e["aux"], u_p[k], b,
+                *cot, g_rad), 10),
+            fwd_ms=time_ms(lambda: fused.fused_bounce_fwd(
+                spec, tab, desc, e, u_p[k]), 10)))
+
+    stages = dict(
+        tables_ms=stage_ms(lambda: (
+            fused.scene_tables(scene, cfg, general=True),
+            fused.pack_tabvec(diff_scene, spec))),
+        uniforms_ms=stage_ms(lambda: torch.rand(
+            (cfg.max_iters, n, fused.N_UNIFORMS), device="cuda")),
+        pack_ms=stage_ms(lambda: (
+            T.init_rays(o, d, bins, spectral_dtype=cfg.spectral_dtype),
+            fused.pack_state(state), fused.pack_u(u_fixed))),
+        forward_multi_ms=stage_ms(
+            lambda: fused.fused_span_fwd(spec, tab, desc, st, u_p)),
+        backward_multi_ms=stage_ms(lambda: fused.fused_span_bwd(
+            spec, tab, desc, st, u_p, bits, *cot, g_rad)),
+        forward_perbounce_ms=stage_ms(per_fwd),
+        backward_perbounce_ms=stage_ms(per_bwd),
+        pack_tabvec_backward_ms=stage_ms(lambda: torch.autograd.grad(
+            tab_g, leaves, g_tab, retain_graph=True, allow_unused=True)))
+
+    # the forward render_batch again, now that the tables are kept
+    def fwd_wall():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        T.render_batch(scene, cfg, o, d, gen)
+    forward_wall_ms = stage_ms(fwd_wall)
+
+    faster = min(walls, key=walls.get)
+    if T.tracer.wavefront.DIFF_SPAN != faster:
+        print(f"chip_smoke: note: the default differentiable span mode is "
+              f"{T.tracer.wavefront.DIFF_SPAN!r}, {faster!r} was faster in "
+              f"this run", file=sys.stderr, flush=True)
+    emit("step", rays=n, bins=bins, max_depth=cfg.max_depth,
+         max_iters=cfg.max_iters, spectral_dtype=cfg.spectral_dtype,
+         loss=float(runs["multi"][0]), launches=launches, euler=euler,
+         route_deviation=route_dev,
+         grad_max={f: float(g.abs().max()) for f, g in runs["multi"][1].items()},
+         segments=segments,
+         wall_ms={k: v * 1e3 for k, v in walls.items()},
+         segments_per_step_s={k: segments / v for k, v in walls.items()},
+         faster=faster, default=T.tracer.wavefront.DIFF_SPAN,
+         peak_bytes=peak, stages=stages, bounce_bwd_by_bounce=by_bounce,
+         forward_render_batch_wall_ms=forward_wall_ms)
+    return launches
+
+
+def kernels_line(cornell, grad, launches, step_launches):
+    """The per-kernel summary at the main paths' shapes (the Cornell box,
+    262144 rays, 15 bins; the span kernels over all 24 bounces). Each
+    kernel's launches are those of its own route's run of its main path:
+    ``render_batch`` for the forward kernels (which the training step
+    launches as often again), ``render_loss_and_grads`` for the adjoints."""
+    src = "source_tpu_torch/csrc/"
     rows = []
-    for name, m, line, route in (
-            ("fused_bounce_fwd", cornell["fused_bounce_fwd"], 1319, "perbounce"),
-            ("fused_span_fwd", cornell["fused_span_fwd"][-1], 1738, "span")):
+    for name, m, line, source, count in (
+            ("fused_bounce_fwd", cornell["fused_bounce_fwd"], 1319,
+             "fused_kernels.cu", launches["perbounce"]),
+            ("fused_span_fwd", cornell["fused_span_fwd"][-1], 1738,
+             "fused_kernels.cu", launches["span"]),
+            ("fused_bounce_bwd", grad["fused_bounce_bwd"], 1499,
+             "fused_bwd_kernels.cu", step_launches["perbounce"]),
+            ("fused_span_bwd", grad["fused_span_bwd"], 1824,
+             "fused_bwd_kernels.cu", step_launches["multi"])):
         rows.append(dict(
-            name=name, route="cuda",
-            source="source_tpu_torch/csrc/fused_kernels.cu",
+            name=name, route="cuda", source=src + source,
             replaces=f"source_tpu/tracer/pallas_fused.py:{line}",
-            launches=launches[route][name], max_abs_err=m["max_abs"], ms=m["ms"],
+            launches=count[name], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
     return {"kernels": rows}
@@ -459,7 +969,8 @@ def kernels_line(cornell, launches):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,kernels,furnace,main")
+    ap.add_argument("--phases",
+                    default="env,kernels,furnace,main,grad_kernels,step")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -469,7 +980,7 @@ def main():
     from source_tpu_torch.tracer import fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cornell = launches = None
+    cornell = grad = launches = step_launches = None
     if "env" in phases:
         phase_env(fused)
     if "kernels" in phases:
@@ -478,11 +989,16 @@ def main():
         phase_furnace(T, scenes)
     if "main" in phases:
         launches = phase_main(T, fused, scenes)
-    if cornell is None or launches is None:
+    if "grad_kernels" in phases:
+        grad = phase_grad_kernels(T, fused, scenes)
+    if "step" in phases:
+        step_launches = phase_step(T, fused, scenes)
+    if None in (cornell, grad, launches, step_launches):
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
-    print(json.dumps(kernels_line(cornell, launches)), flush=True)
+    print(json.dumps(kernels_line(cornell, grad, launches, step_launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -136,6 +136,12 @@ class CompiledScene:
     has_roughen: bool = False
     has_importance: bool = False
     n_bins: int = 15
+    # what the fused tracer derives from (scene, ray configuration) alone:
+    # specs, kernel descriptors and the forward table (tracer/fused.py
+    # ``scene_tables``). Not a constructor argument: a scene made by
+    # ``dataclasses.replace`` starts with an empty cache.
+    fused_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def bins(self):

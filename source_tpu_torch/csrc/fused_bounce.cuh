@@ -1,5 +1,7 @@
 // One path-tracing bounce for one ray: the device functions shared by the
-// fused forward kernels (fused_kernels.cu).
+// fused forward kernels (fused_kernels.cu) and, through fused_adjoint.cuh, by
+// the adjoint kernels (fused_bwd_kernels.cu), which replay the bounce with
+// them before they reverse it.
 //
 // This is the per-thread form of ``bounce_core`` in tracer/fused.py, which is
 // its plain PyTorch version and the specification: Russian roulette,
@@ -418,9 +420,12 @@ __device__ __forceinline__ float cubic_largest(float b, float c, float d) {
 }
 
 // Four Newton-polished (root, valid) pairs of a x^4 + b x^3 + c x^2 + d x + e.
+// ``seeds``, when given, receives the four roots as Ferrari leaves them, before
+// the Newton steps (the adjoint reverses those steps from there).
 __device__ __forceinline__ void solve_quartic(float a, float b, float c, float d,
                                               float e, int newton_iters,
-                                              Root out[4]) {
+                                              Root out[4],
+                                              float* seeds = nullptr) {
   bool a_ok = fabsf(a) > 1e-30f;
   a = a_ok ? a : 1.0f;
   float inv_a = 1.0f / a;
@@ -446,6 +451,7 @@ __device__ __forceinline__ void solve_quartic(float a, float b, float c, float d
   for (int k = 0; k < 4; ++k) {
     bool v = out[k].v && a_ok;
     float x = v ? out[k].x + shift : 0.0f;
+    if (seeds) seeds[k] = x;
     for (int it = 0; it < newton_iters; ++it) {
       float poly = (((a * x + b) * x + c) * x + d) * x + e;
       float dpoly = ((4.0f * a * x + 3.0f * b) * x + 2.0f * c) * x + d;

@@ -1,19 +1,26 @@
-"""Device entry point for rendering a ray batch.
+"""Device entry points: rendering a ray batch, and the training step.
 
 Counterpart of the reference's render-engine task farm
 (raysect/core/workflow.py:123-326): the parallel axis is the ray batch, and
-one call traces all of it on one device. Sharded and differentiable entry
-points are not part of this package yet.
+one call traces all of it on one device. ``render_batch`` traces forward;
+with ``differentiable=True`` the returned radiance carries an autograd graph
+to the scene's tensors. ``render_loss_and_grads`` is the differentiable
+rendering step: an L2 loss against a target and its gradient with respect to
+every float table of the scene. Sharded entry points are not part of this
+package yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..compiler.scene import CompiledScene, resolve_device
-from ..tracer.wavefront import RayConfig, init_rays, trace_rays
+from ..tracer.fused import TABLE_FIELDS
+from ..tracer.wavefront import RayConfig, init_rays, trace_rays, trace_rays_diff
 
-__all__ = ["render_batch"]
+__all__ = ["render_batch", "render_loss_and_grads"]
 
 
 def render_batch(scene: CompiledScene, cfg: RayConfig, origin, direction,
@@ -22,11 +29,8 @@ def render_batch(scene: CompiledScene, cfg: RayConfig, origin, direction,
     """Trace a ray batch and return the final RayState: the shared device
     entry point. ``origin``/``direction`` are [N, 3] (tensors or arrays) and
     are moved to ``device``, where the scene must already live. ``trace_kw``
-    goes to ``trace_rays`` (``u_all``, ``shifts``, ``span``)."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable tracer (trace_rays_diff) is not part of "
-            "this package yet")
+    goes to ``trace_rays``, or with ``differentiable`` to ``trace_rays_diff``
+    (``u_all``, ``shifts``, ``span``)."""
     device = resolve_device(device)
     origin = torch.as_tensor(origin, dtype=torch.float32).to(device)
     direction = torch.as_tensor(direction, dtype=torch.float32).to(device)
@@ -34,4 +38,35 @@ def render_batch(scene: CompiledScene, cfg: RayConfig, origin, direction,
         weight = torch.as_tensor(weight, dtype=torch.float32).to(device)
     state = init_rays(origin, direction, scene.bins, weight,
                       spectral_dtype=cfg.spectral_dtype)
-    return trace_rays(scene, cfg, state, generator, **trace_kw)
+    tracer = trace_rays_diff if differentiable else trace_rays
+    return tracer(scene, cfg, state, generator, **trace_kw)
+
+
+def render_loss_and_grads(scene: CompiledScene, cfg: RayConfig, origin,
+                          direction, target, generator=None, device="cuda",
+                          **trace_kw):
+    """Differentiable-rendering training step: the L2 loss
+    ``mean((radiance - target)**2)`` between the traced per-ray spectra and
+    ``target`` [N, B], and its gradient with respect to every float table of
+    the scene (geometry transforms, primitive parameters, material tables,
+    importance spheres).
+
+    Returns ``(loss, grads)``: ``grads`` maps each name of
+    ``fused.TABLE_FIELDS`` to a tensor of that field's shape, zeros where the
+    trace does not read it. The caller's scene is neither changed nor left
+    requiring gradients. ``trace_kw`` goes to ``trace_rays_diff``."""
+    device = resolve_device(device)
+    leaves = {f: getattr(scene, f).detach().requires_grad_(True)
+              for f in TABLE_FIELDS}
+    diff_scene = dataclasses.replace(scene, **leaves)
+    # the spec and the descriptor do not depend on the tensors' values
+    diff_scene.fused_cache = scene.fused_cache
+    final = render_batch(diff_scene, cfg, origin, direction, generator,
+                         differentiable=True, device=device, **trace_kw)
+    target = torch.as_tensor(target, dtype=torch.float32).to(device)
+    loss = torch.mean((final.radiance - target) ** 2)
+    found = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    grads = {f: torch.zeros_like(leaves[f]) if g is None else g
+             for f, g in zip(TABLE_FIELDS, found)}
+    return loss.detach(), grads

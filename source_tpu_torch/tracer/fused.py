@@ -7,7 +7,7 @@ dispatch, state update — is ONE function per ray. Reference analogue: the
 whole recursive ``Ray.trace`` loop (raysect/optical/ray.pyx:338-455 +
 material dispatch).
 
-Three layers, one function:
+One function, its adjoint, and four kernels:
 
   * ``bounce_core(spec, tget, state, u, bits)`` is the bounce as plain
     PyTorch ops on flat per-ray tensors. With ``bits=None`` it makes the
@@ -20,14 +20,29 @@ Three layers, one function:
   * ``fused_span_fwd`` launches ``fused_span_fwd``: ``n_steps`` bounces in
     one kernel with the ray state in registers; only the uniforms are read
     and the choice bitfields written per bounce.
+  * ``fused_bounce_bwd`` launches ``fused_bounce_bwd``
+    (csrc/fused_bwd_kernels.cu): the vector-Jacobian product of one replayed
+    bounce, cotangents of the ray state in, cotangents of the entry state
+    and of the scene table out. Its plain version is ``bounce_bwd_plain``:
+    ``torch.autograd.grad`` of ``bounce_core`` in replay mode.
+  * ``fused_span_bwd`` launches ``fused_span_bwd``: replays a whole span
+    from its entry state, saving each bounce's entry state to scratch, then
+    chains the per-bounce adjoints in reverse inside the kernel. Its plain
+    version is ``span_bwd_plain``.
 
-Both wrappers take the plain version for CPU tensors and launch the kernel
-— or raise — for CUDA tensors; each counts its launches.
-``fused_forward_span`` drives a span of bounces for ``wavefront.trace_rays``.
+Every wrapper takes the plain version for CPU tensors and launches the kernel
+— or raises — for CUDA tensors; each counts its launches.
+``fused_forward_span`` drives a span of bounces for ``wavefront.trace_rays``;
+``fused_span`` is its differentiable counterpart for
+``wavefront.trace_rays_diff``: an ``autograd.Function`` per route (one
+kernel per bounce each way, or one per span each way) whose backward hands
+the table cotangent on to ``pack_tabvec``, which is plain differentiable
+tensor code, and so to the scene's tensors.
 
 The kernels are data-driven: one compiled library per bin count serves every
 scene, steered by an int32 descriptor of the spec (``spec_descriptor``) and
 the flat f32 table (``pack_tabvec``), both copied to shared memory per block.
+``scene_tables`` caches what depends only on (scene, spec) on the scene.
 """
 
 from __future__ import annotations
@@ -67,9 +82,11 @@ from ..primitive.analytic import (
     TYPE_TORUS,
 )
 
-__all__ = ["FusedSpec", "fused_spec", "pack_tabvec", "spec_descriptor",
-           "bounce_core", "fused_bounce_fwd", "fused_span_fwd",
-           "fused_forward_span", "build_library"]
+__all__ = ["FusedSpec", "fused_spec", "general_spec", "pack_tabvec",
+           "spec_descriptor", "scene_tables", "forward_table", "bounce_core",
+           "fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
+           "fused_span_bwd", "bounce_bwd_plain", "span_bwd_plain",
+           "fused_forward_span", "fused_span", "build_library"]
 
 _BIG = 3e38
 _PI = 3.14159265358979323846
@@ -128,6 +145,18 @@ class FusedSpec:
     importance_sampling: bool
     important_path_weight: float
     max_distance: float
+
+
+def general_spec(spec):
+    """The spec with fast records disabled (all leaves general local-frame).
+
+    The differentiable span uses this: a fast record's world-space
+    expression coincides with the general one in value at the compiled
+    transform but is a different local extension of it, so its w2l
+    cotangents differ (the world-AABB route is blind to rotation
+    perturbations). Forward-only tracing keeps the fast records."""
+    return dataclasses.replace(
+        spec, leaves=tuple((t, e, m, 0) for (t, e, m, _k) in spec.leaves))
 
 
 def fused_spec(scene, cfg):
@@ -240,16 +269,18 @@ def tab_size(spec):
 
 
 def pack_tabvec(scene, spec):
-    """Flat f32[T] view of the scene tables the bounce reads, on the
-    scene's device.
+    """Differentiable flat f32[T] view of the scene tables the bounce reads,
+    as tensor ops on the scene's device: autograd carries a table cotangent
+    back to ``leaf_w2l``, ``leaf_params``, ``mat_*``, ``imp_*`` and
+    ``entity_w2l``. Forward-only callers run it under ``torch.no_grad()``.
 
     Fast-record leaves bake WORLD-space fields (sphere centre+radius, box
-    AABB) computed from inv(w2l). The table is a few hundred floats, so it
-    is assembled on the host in f32 (the 8-corner product as explicit
-    mul-add, never a reduced-precision matrix product) and copied over."""
+    AABB) computed from inv(w2l), the 8-corner product as explicit mul-add
+    (never a reduced-precision matrix product)."""
     L = len(spec.leaves)
-    w2l = scene.leaf_w2l.detach().to("cpu", torch.float32)
-    params = scene.leaf_params.detach().to("cpu", torch.float32)
+    f32 = torch.float32
+    w2l = scene.leaf_w2l.to(f32)
+    params = scene.leaf_params.to(f32)
     leaf_rows = torch.cat([w2l[:L, :3, :].reshape(L, 12), params[:L]], dim=1)
     if any(k for (_t, _e, _m, k) in spec.leaves):
         rows = []
@@ -260,7 +291,7 @@ def pack_tabvec(scene, spec):
             p = params[g]
             if kind == 1:  # world sphere (pure translation: c = -w2l[:,3])
                 c = -w2l[g, :3, 3]
-                row = torch.cat([c, p[0][None], torch.zeros(16)])
+                row = torch.cat([c, p[0][None], p.new_zeros(16)])
             else:  # world AABB from the 8 transformed corners
                 l2w = torch.linalg.inv(w2l[g])
                 corners = torch.stack([
@@ -271,27 +302,67 @@ def pack_tabvec(scene, spec):
                     corners[:, 0] * l2w[c, 0] + corners[:, 1] * l2w[c, 1]
                     + corners[:, 2] * l2w[c, 2] + l2w[c, 3]
                     for c in range(3)], dim=1)
-                row = torch.cat([wc.min(dim=0).values, wc.max(dim=0).values,
-                                 torch.zeros(14)])
+                row = torch.cat([wc.amin(dim=0), wc.amax(dim=0),
+                                 p.new_zeros(14)])
             rows.append(row)
         leaf_rows = torch.stack(rows)
     parts = [leaf_rows.reshape(-1)]
-
-    def host(x):
-        return x.detach().to("cpu", torch.float32)
-
-    mat_spectra = host(scene.mat_spectra)
+    mat_spectra = scene.mat_spectra.to(f32)
     parts.append(torch.cat(
-        [host(scene.mat_params)[:, :8], host(scene.mat_scalars)[:, :2],
+        [scene.mat_params.to(f32)[:, :8], scene.mat_scalars.to(f32)[:, :2],
          mat_spectra[:, 0, :], mat_spectra[:, 1, :]], dim=1).reshape(-1))
     parts.append(torch.cat(
-        [host(scene.imp_centre), host(scene.imp_radius)[:, None],
-         host(scene.imp_weight)[:, None], host(scene.imp_cdf)[:, None]],
+        [scene.imp_centre.to(f32), scene.imp_radius.to(f32)[:, None],
+         scene.imp_weight.to(f32)[:, None], scene.imp_cdf.to(f32)[:, None]],
         dim=1).reshape(-1))
-    entity_w2l = host(scene.entity_w2l)
+    entity_w2l = scene.entity_w2l.to(f32)
     for e in spec.check_entities:
         parts.append(entity_w2l[e, :3, :].reshape(12))
-    return torch.cat(parts).to(scene.leaf_w2l.device)
+    return torch.cat(parts)
+
+
+# the scene tensors pack_tabvec reads: the float fields a gradient lands on
+TABLE_FIELDS = ("leaf_w2l", "leaf_params", "mat_params", "mat_spectra",
+                "mat_scalars", "imp_centre", "imp_radius", "imp_weight",
+                "imp_cdf", "entity_w2l")
+
+
+def scene_tables(scene, cfg, general=False):
+    """(spec, entry) for an eligible (scene, cfg), else None, cached on the
+    scene: the ``FusedSpec`` per ray configuration and, per spec, an entry
+    holding the descriptor on the scene's device (``entry["desc"]``) and the
+    forward table of ``forward_table``. ``general`` asks for the
+    differentiable route's ``general_spec``."""
+    cache = scene.fused_cache
+    if cfg not in cache:
+        cache[cfg] = fused_spec(scene, cfg)
+    spec = cache[cfg]
+    if spec is None:
+        return None
+    if general:
+        spec = general_spec(spec)
+    entry = cache.get(spec)
+    if entry is None:
+        entry = cache[spec] = {
+            "desc": torch.as_tensor(spec_descriptor(spec),
+                                    device=scene.device),
+            "tab": None, "stamp": ()}
+    return spec, entry
+
+
+def forward_table(scene, spec, entry):
+    """The detached table of ``spec`` for forward-only tracing, rebuilt only
+    when a source tensor was replaced or edited in place since it was packed
+    (an optimiser updates scene tensors between steps)."""
+    stamp = tuple((t, t._version)
+                  for t in (getattr(scene, f) for f in TABLE_FIELDS))
+    old = entry["stamp"]
+    if len(old) != len(stamp) or any(
+            a is not b or va != vb for (a, va), (b, vb) in zip(old, stamp)):
+        with torch.no_grad():
+            entry["tab"] = pack_tabvec(scene, spec)
+        entry["stamp"] = stamp
+    return entry["tab"]
 
 
 def _maximum(a, b):
@@ -1307,13 +1378,44 @@ def bounce_flops(spec):
     return ops
 
 
+def bounce_bwd_flops(spec):
+    """Approximate f32 operations one live ray spends in the adjoint of one
+    bounce of this spec, counted as in ``bounce_flops``. The adjoint replays
+    the winner's side of the bounce only (one hit function, one normal, one
+    material, the volumes, the light cones) and then runs the reverse pass,
+    which costs about twice the replayed forward, plus the cotangent update
+    of the throughput and radiance rows."""
+    per_type = {TYPE_SPHERE: 60, TYPE_BOX: 70, TYPE_CYLINDER: 110,
+                TYPE_CONE: 130, TYPE_PARABOLA: 140, TYPE_TORUS: 520}
+    B = spec.bins
+    L = len(spec.leaves)
+    fwd = 40 + 2 * B + 33 + 90
+    fwd += sum(per_type[t] for (t, _e, _m, _k) in spec.leaves) // max(L, 1)
+    for (_e, _m, kind, _leaf) in spec.volumes:
+        fwd += 30 + (12 * B if kind == VOL_BEER else 3 * B)
+    present = {spec.mat_types[m] for (_t, _e, m, _k) in spec.leaves}
+    if spec.importance_sampling and spec.has_importance:
+        fwd += spec.n_imp * 70 + 80
+    if MAT_DIELECTRIC in present:
+        fwd += 120
+    fwd += 80 + 6 * B
+    return 3 * fwd + 8 * B
+
+
 # --- building and loading the kernels ------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-_libraries = {}  # bins -> loaded ctypes library (one build per bin count)
+# library -> (translation unit, the headers it includes). The adjoint kernels
+# are a translation unit of their own: both build in parallel, and a change to
+# the adjoint never moves the forward kernels' code.
+_SOURCES = {
+    "fwd": ("fused_kernels.cu", ("fused_bounce.cuh",)),
+    "bwd": ("fused_bwd_kernels.cu", ("fused_bounce.cuh", "fused_adjoint.cuh")),
+}
+_libraries = {}  # (which, bins) -> loaded ctypes library
 
 
 def _nvcc():
@@ -1327,17 +1429,18 @@ def _nvcc():
         "need the CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def build_library(bins, verbose=False):
-    """Compile csrc/fused_kernels.cu for ``bins`` spectral bins into
-    ``_build/`` (if its sources are newer than the library) and return the
-    library path. ``verbose`` adds ptxas' register/spill report to the
-    returned log."""
-    src = _CSRC / "fused_kernels.cu"
-    hdr = _CSRC / "fused_bounce.cuh"
+def build_library(bins, which="fwd", verbose=False):
+    """Compile the forward (``which="fwd"``, csrc/fused_kernels.cu) or the
+    adjoint (``"bwd"``, csrc/fused_bwd_kernels.cu) kernels for ``bins``
+    spectral bins into ``_build/`` (if the sources are newer than the
+    library) and return (library path, compiler log). ``verbose`` adds
+    ptxas' register/spill report to the log."""
+    unit, headers = _SOURCES[which]
+    src = _CSRC / unit
     _BUILD.mkdir(exist_ok=True)
-    out = _BUILD / f"libfused_b{bins}.so"
+    out = _BUILD / f"libfused_{which}_b{bins}.so"
     log = ""
-    newest = max(src.stat().st_mtime, hdr.stat().st_mtime)
+    newest = max(f.stat().st_mtime for f in [src] + [_CSRC / h for h in headers])
     if not out.exists() or out.stat().st_mtime < newest:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DSRC_BINS={bins}", "-o", str(tmp),
@@ -1352,24 +1455,37 @@ def build_library(bins, verbose=False):
     return out, log
 
 
-def _library(bins):
-    lib = _libraries.get(bins)
+def _library(bins, which="fwd"):
+    lib = _libraries.get((which, bins))
     if lib is None:
-        path, _log = build_library(bins)
+        path, _log = build_library(bins, which)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # tab, n_tab, desc, n_desc, [state in x5], [state out x5], u, bits, N,
-        # (n_steps,) max_depth, ext_min_depth, ext_prob, survive_scale,
-        # w_imp, one_minus_w_imp, max_distance, stream
-        state = [p] * 5
+        # max_depth, ext_min_depth, ext_prob, survive_scale, w_imp,
+        # one_minus_w_imp, max_distance, stream
         tail = [i, i, f, f, f, f, f, p]
-        lib.fused_bounce_fwd.argtypes = (
-            [p, i, p, i] + state + state + [p, p, i] + tail)
-        lib.fused_bounce_fwd.restype = i
-        lib.fused_span_fwd.argtypes = (
-            [p, i, p, i] + state + state + [p, p, i, i] + tail)
-        lib.fused_span_fwd.restype = i
-        _libraries[bins] = lib
+        if which == "fwd":
+            # tab, n_tab, desc, n_desc, [state in x5], [state out x5], u,
+            # bits, N, (n_steps,) tail
+            state = [p] * 5
+            lib.fused_bounce_fwd.argtypes = (
+                [p, i, p, i] + state + state + [p, p, i] + tail)
+            lib.fused_span_fwd.argtypes = (
+                [p, i, p, i] + state + state + [p, p, i, i] + tail)
+            fns = (lib.fused_bounce_fwd, lib.fused_span_fwd)
+        else:
+            # tab, n_tab, desc, n_desc, entry o d thr aux, u, bits,
+            # cotangents in go gd gthr g_rad, out go gd gthr, table partials,
+            # (scratch, replay_out,) N, (n_steps,) tail
+            head = [p, i, p, i] + [p] * 14
+            lib.fused_bounce_bwd.argtypes = head + [i] + tail
+            lib.fused_span_bwd.argtypes = head + [p, p, i, i] + tail
+            lib.fused_bwd_blocks.argtypes = [i]
+            fns = (lib.fused_bounce_bwd, lib.fused_span_bwd,
+                   lib.fused_bwd_blocks)
+        for fn in fns:
+            fn.restype = i
+        _libraries[(which, bins)] = lib
     return lib
 
 
@@ -1381,11 +1497,13 @@ _STATE_KEYS = ("o", "d", "thr", "rad", "aux")
 
 
 def _check_state(spec, st, extra):
-    """Raise on anything the kernels do not take: every tensor f32 (bits
-    i32), contiguous, on one device, with the shapes of the packed state."""
+    """Raise on anything the kernels do not take: every tensor f32,
+    contiguous, on one device, with the shapes of the packed state (the
+    cotangents ``go gd gthr g_rad`` have the shapes of ``o d thr rad``)."""
     N = st["o"].shape[1]
     want = {"o": (3, N), "d": (3, N), "thr": (spec.bins, N),
-            "rad": (spec.bins, N), "aux": (2, N)}
+            "rad": (spec.bins, N), "aux": (2, N), "go": (3, N), "gd": (3, N),
+            "gthr": (spec.bins, N), "g_rad": (spec.bins, N)}
     dev = st["o"].device
     for name, t in list(st.items()) + list(extra.items()):
         shape = want.get(name)
@@ -1398,6 +1516,19 @@ def _check_state(spec, st, extra):
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, state on {dev}")
     return N
+
+
+def _check_tables(spec, tab, desc):
+    if desc.dtype != torch.int32 or desc.device != tab.device:
+        raise TypeError("desc must be an int32 tensor on the state's device")
+    if tab.numel() != tab_size(spec):
+        raise ValueError(f"tab: {tab.numel()} floats, want {tab_size(spec)}")
+
+
+def _check_bits(bits, shape, dev):
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != shape
+            or bits.device != dev or not bits.is_contiguous()):
+        raise ValueError(f"bits must be a contiguous int32{list(shape)} on {dev}")
 
 
 def _cfg_args(spec):
@@ -1447,12 +1578,9 @@ def span_fwd_plain(spec, tab, st, u_all):
 
 
 def _launch(fn_name, spec, tab, desc, st, u, n_steps):
-    """Shared body of the two kernel wrappers for CUDA tensors."""
+    """Shared body of the two forward kernel wrappers for CUDA tensors."""
     N = _check_state(spec, st, {"u": u, "tab": tab})
-    if desc.dtype != torch.int32 or desc.device != tab.device:
-        raise TypeError("desc must be an int32 tensor on the state's device")
-    if tab.numel() != tab_size(spec):
-        raise ValueError(f"tab: {tab.numel()} floats, want {tab_size(spec)}")
+    _check_tables(spec, tab, desc)
     lib = _library(spec.bins)
     out = {k: torch.empty_like(st[k]) for k in _STATE_KEYS}
     if n_steps is None:
@@ -1506,7 +1634,203 @@ fused_bounce_fwd.launches = 0
 fused_span_fwd.launches = 0
 
 
-# --- what wavefront.trace_rays calls ---------------------------------------------
+# --- the adjoint: plain versions and kernel wrappers -------------------------------
+# A bounce maps (o, d, thr, table) to (o, d, thr, rad_delta) once its discrete
+# choices are fixed by the saved bitfield. The adjoint takes the cotangents
+# (go, gd, gthr, g_rad) of those outputs and returns the cotangents of the
+# entry o, d, thr and of the table. A lane whose saved bitfield is 0 (dead on
+# entry, or stopped by the roulette or the depth bound before its segment)
+# took no part in the bounce: its cotangents pass through unchanged and it
+# adds nothing to the table cotangent. That is enforced by leaving such lanes
+# out, never by differentiating the bounce on a state with bits == 0, which
+# no forward evaluation ever visits.
+
+
+def _live_lanes(bits):
+    return (bits != 0).nonzero().squeeze(1)
+
+
+def bounce_bwd_plain(spec, tab, o, d, thr, aux, u, bits, go, gd, gthr, g_rad):
+    """Plain PyTorch version of ``fused_bounce_bwd``: ``torch.autograd.grad``
+    of ``bounce_core`` in replay mode (``bits`` given) with respect to
+    ``(o, d, thr, tab)`` under the cotangents ``(go, gd, gthr, g_rad)`` of
+    ``(o, d, thr, rad_delta)``. Returns (go, gd, gthr, table cotangent
+    f32[tab_size])."""
+    idx = _live_lanes(bits)
+    gtab = torch.zeros_like(tab)
+    if idx.numel() == 0:
+        return go, gd, gthr, gtab
+    with torch.enable_grad():
+        o_, d_, thr_ = (x[:, idx].detach().requires_grad_(True)
+                        for x in (o, d, thr))
+        tab_ = tab.detach().requires_grad_(True)
+        state = {"o": tuple(o_), "d": tuple(d_), "thr": tuple(thr_),
+                 "alive": aux[0, idx] > 0.5, "depth": aux[1, idx]}
+        out = bounce_core(spec, tab_.unbind(0).__getitem__, state,
+                          tuple(u[:, idx]), bits[idx])
+        pairs = [(torch.stack(out[k]), g[:, idx]) for k, g in (
+            ("o", go), ("d", gd), ("thr", gthr), ("rad_delta", g_rad))]
+        pairs = [(y, g) for y, g in pairs if y.requires_grad]
+        grads = torch.autograd.grad(
+            [y for y, _ in pairs], [o_, d_, thr_, tab_],
+            [g for _, g in pairs], allow_unused=True)
+    res = []
+    for full, part in zip((go, gd, gthr), grads[:3]):
+        new = full.clone()
+        new[:, idx] = 0.0 if part is None else part
+        res.append(new)
+    if grads[3] is not None:
+        gtab = grads[3]
+    return res[0], res[1], res[2], gtab
+
+
+def _replay_plain(spec, tab, st, u, bits):
+    """The entry state of the next bounce from this one's (o, d, thr, aux)
+    and its saved bitfield: ``bounce_core`` in replay mode on the lanes that
+    took part; the others keep their state and are dead from here on (one
+    the depth bound stopped after it survived the roulette keeps the
+    roulette's scale on its throughput, as in the forward bounce)."""
+    idx = _live_lanes(bits)
+    new = {k: st[k].clone() for k in ("o", "d", "thr")}
+    alive, depth = st["aux"][0] > 0.5, st["aux"][1]
+    stopped = (alive & (bits == 0) & (depth >= spec.extinction_min_depth)
+               & ~(u[6] < spec.extinction_prob))
+    new["thr"] = new["thr"] * torch.where(
+        stopped, 1.0 / (1.0 - spec.extinction_prob), 1.0)
+    aux = torch.stack([torch.zeros_like(depth), depth])
+    if idx.numel():
+        sub = {k: st[k][:, idx] for k in ("o", "d", "thr", "aux")}
+        out = bounce_core(spec, tab.unbind(0).__getitem__, _state_of(sub),
+                          tuple(u[:, idx]), bits[idx])
+        for k in ("o", "d", "thr"):
+            new[k][:, idx] = torch.stack(out[k])
+        aux[0, idx] = torch.where(out["alive_next"], 1.0, 0.0)
+        aux[1, idx] = out["depth"]
+    new["aux"] = aux
+    return new
+
+
+def _replay_span(spec, tab, st0, u_all, bits):
+    """Entry state of every bounce of a span under its saved bits, and the
+    state the span ends in."""
+    entries, st = [], st0
+    with torch.no_grad():
+        for u, b in zip(u_all, bits):
+            entries.append(st)
+            st = _replay_plain(spec, tab, st, u, b)
+    return entries, st
+
+
+def span_bwd_plain(spec, tab, st0, u_all, bits, go, gd, gthr, g_rad,
+                   return_replay=False):
+    """Plain PyTorch version of ``fused_span_bwd``: replay the span from its
+    entry state ``st0`` (o, d, thr, aux) under the saved ``bits[n_steps, N]``
+    keeping every bounce's entry state, then chain ``bounce_bwd_plain`` in
+    reverse, summing the table cotangent."""
+    entries, last = _replay_span(spec, tab, st0, u_all, bits)
+    gtab = torch.zeros_like(tab)
+    for k in range(len(entries) - 1, -1, -1):
+        e = entries[k]
+        go, gd, gthr, gt = bounce_bwd_plain(
+            spec, tab, e["o"], e["d"], e["thr"], e["aux"], u_all[k], bits[k],
+            go, gd, gthr, g_rad)
+        gtab = gtab + gt
+    if return_replay:
+        return go, gd, gthr, gtab, torch.cat(
+            [last["o"], last["d"], last["thr"], last["aux"]])
+    return go, gd, gthr, gtab
+
+
+def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
+                want_replay):
+    """Shared body of the two adjoint kernel wrappers for CUDA tensors."""
+    N = _check_state(spec, st, dict(cots, u=u, tab=tab))
+    _check_tables(spec, tab, desc)
+    if any(k for (_t, _e, _m, k) in spec.leaves):
+        raise ValueError(
+            "the adjoint kernels take general leaf records only: pass "
+            "general_spec(spec) and the table packed for it")
+    dev = tab.device
+    _check_bits(bits, (N,) if n_steps is None else (n_steps, N), dev)
+    lib = _library(spec.bins, "bwd")
+    outs = [torch.empty_like(cots[k]) for k in ("go", "gd", "gthr")]
+    # per-block partial sums of the table cotangent, summed below
+    parts = torch.empty((lib.fused_bwd_blocks(N), tab.numel()),
+                        dtype=torch.float32, device=dev)
+    extra, replay = [N], None
+    if n_steps is not None:
+        # entry state of every bounce a ray enters: o d thr alive depth
+        scratch = torch.empty((n_steps, 8 + spec.bins, N),
+                              dtype=torch.float32, device=dev)
+        if want_replay:
+            replay = torch.empty((8 + spec.bins, N), dtype=torch.float32,
+                                 device=dev)
+        extra = [scratch.data_ptr(),
+                 replay.data_ptr() if want_replay else None, N, n_steps]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn_name)(
+            tab.data_ptr(), tab.numel(), desc.data_ptr(), desc.numel(),
+            *[st[k].data_ptr() for k in ("o", "d", "thr", "aux")],
+            u.data_ptr(), bits.data_ptr(),
+            *[cots[k].data_ptr() for k in ("go", "gd", "gthr", "g_rad")],
+            *[t.data_ptr() for t in outs], parts.data_ptr(), *extra,
+            *_cfg_args(spec), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+    res = (outs[0], outs[1], outs[2], parts.sum(0))
+    return res + (replay,) if want_replay else res
+
+
+def fused_bounce_bwd(spec, tab, desc, o, d, thr, aux, u, bits, go, gd, gthr,
+                     g_rad):
+    """Adjoint of one replayed bounce for every ray: the entry state
+    ``o d thr aux``, its uniforms ``u`` f32[10, N] and saved ``bits`` i32[N],
+    and the cotangents ``go gd gthr g_rad`` of the bounce's ``o d thr
+    rad_delta``. Returns (go, gd, gthr, table cotangent f32[tab_size]). CUDA
+    tensors launch the hand-written kernel or raise; CPU tensors take the
+    plain version."""
+    if tuple(u.shape) != (N_UNIFORMS, o.shape[1]):
+        raise ValueError(f"u: shape {tuple(u.shape)}")
+    if not tab.is_cuda:
+        return bounce_bwd_plain(spec, tab, o, d, thr, aux, u, bits, go, gd,
+                                gthr, g_rad)
+    res = _launch_bwd(
+        "fused_bounce_bwd", spec, tab, desc,
+        {"o": o, "d": d, "thr": thr, "aux": aux}, u, bits,
+        {"go": go, "gd": gd, "gthr": gthr, "g_rad": g_rad}, None, False)
+    fused_bounce_bwd.launches += 1
+    return res
+
+
+def fused_span_bwd(spec, tab, desc, st0, u_all, bits, go, gd, gthr, g_rad,
+                   return_replay=False):
+    """Adjoint of a whole span in one kernel: ``st0`` is the span's entry
+    state (o, d, thr, aux), ``u_all`` f32[n_steps, 10, N] and ``bits``
+    i32[n_steps, N] what ``fused_span_fwd`` read and wrote. Returns (go, gd,
+    gthr, table cotangent); with ``return_replay`` also the state the
+    kernel's forward replay ended in, f32[8 + B, N] (o, d, thr, alive,
+    depth), for holding it against the forward kernel's."""
+    N = st0["o"].shape[1]
+    if u_all.dim() != 3 or tuple(u_all.shape[1:]) != (N_UNIFORMS, N):
+        raise ValueError(f"u_all: shape {tuple(u_all.shape)}")
+    st0 = {k: st0[k] for k in ("o", "d", "thr", "aux")}
+    if not tab.is_cuda:
+        return span_bwd_plain(spec, tab, st0, u_all, bits, go, gd, gthr, g_rad,
+                              return_replay)
+    res = _launch_bwd(
+        "fused_span_bwd", spec, tab, desc, st0, u_all, bits,
+        {"go": go, "gd": gd, "gthr": gthr, "g_rad": g_rad},
+        int(u_all.shape[0]), return_replay)
+    fused_span_bwd.launches += 1
+    return res
+
+
+fused_bounce_bwd.launches = 0
+fused_span_bwd.launches = 0
+
+
+# --- what wavefront.trace_rays and trace_rays_diff call ----------------------------
 
 
 def pack_state(state):
@@ -1542,14 +1866,18 @@ def pack_u(u_all):
     return u_all[:, :, :N_UNIFORMS].permute(0, 2, 1).contiguous()
 
 
+def _check_span(span):
+    if span not in ("multi", "perbounce"):
+        raise ValueError(f"span must be 'multi' or 'perbounce', got {span!r}")
+
+
 def fused_forward_span(tab, desc, spec, state, u_all, span="multi",
                        early_exit=True):
     """Forward fused trace of one span: ``u_all`` is [n_steps, N, >=10].
     ``span="multi"`` runs the whole span in one ``fused_span_fwd``;
     ``"perbounce"`` runs one ``fused_bounce_fwd`` per bounce, stopping once
     every ray is dead when ``early_exit``. Returns RayState."""
-    if span not in ("multi", "perbounce"):
-        raise ValueError(f"span must be 'multi' or 'perbounce', got {span!r}")
+    _check_span(span)
     st = pack_state(state)
     u_p = pack_u(u_all.to(torch.float32))
     if span == "multi":
@@ -1563,3 +1891,82 @@ def fused_forward_span(tab, desc, spec, state, u_all, span="multi",
         st, bits = fused_bounce_fwd(spec, tab, desc, st, u)
         seg = seg + torch.sum(bits & 1, dtype=torch.int32)
     return unpack_state(st, state, seg)
+
+
+class _SpanPerBounce(torch.autograd.Function):
+    """A span as one kernel per bounce each way: the forward runs
+    ``fused_bounce_fwd`` over all ``n_steps`` keeping every bounce's entry
+    state and bitfield, the backward ``fused_bounce_bwd`` in reverse, summing
+    the table cotangent."""
+
+    @staticmethod
+    def forward(ctx, tab, o, d, thr, rad, aux, u_p, spec, desc):
+        st = {"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux}
+        entries = []
+        seg = torch.zeros((), dtype=torch.int32, device=tab.device)
+        for u in u_p:
+            new, bits = fused_bounce_fwd(spec, tab, desc, st, u)
+            entries.append((st["o"], st["d"], st["thr"], st["aux"], bits))
+            seg = seg + torch.sum(bits & 1, dtype=torch.int32)
+            st = new
+        ctx.spec, ctx.desc, ctx.entries = spec, desc, entries
+        ctx.save_for_backward(tab, u_p)
+        ctx.mark_non_differentiable(st["aux"], seg)
+        return st["o"], st["d"], st["thr"], st["rad"], st["aux"], seg
+
+    @staticmethod
+    def backward(ctx, go, gd, gthr, g_rad, _g_aux, _g_seg):
+        tab, u_p = ctx.saved_tensors
+        go, gd, gthr, g_rad = (g.contiguous() for g in (go, gd, gthr, g_rad))
+        gtab = torch.zeros_like(tab)
+        for k in range(len(ctx.entries) - 1, -1, -1):
+            o, d, thr, aux, bits = ctx.entries[k]
+            go, gd, gthr, gt = fused_bounce_bwd(
+                ctx.spec, tab, ctx.desc, o, d, thr, aux, u_p[k], bits,
+                go, gd, gthr, g_rad)
+            gtab = gtab + gt
+        return gtab, go, gd, gthr, g_rad, None, None, None, None
+
+
+class _SpanMulti(torch.autograd.Function):
+    """A span as one kernel each way: ``fused_span_fwd`` keeps the entry
+    state, the uniforms and the bitfields; ``fused_span_bwd`` replays and
+    reverses the span."""
+
+    @staticmethod
+    def forward(ctx, tab, o, d, thr, rad, aux, u_p, spec, desc):
+        st = {"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux}
+        out, bits = fused_span_fwd(spec, tab, desc, st, u_p)
+        seg = torch.sum(bits & 1, dtype=torch.int32)
+        ctx.spec, ctx.desc = spec, desc
+        ctx.save_for_backward(tab, o, d, thr, aux, u_p, bits)
+        ctx.mark_non_differentiable(out["aux"], seg)
+        return out["o"], out["d"], out["thr"], out["rad"], out["aux"], seg
+
+    @staticmethod
+    def backward(ctx, go, gd, gthr, g_rad, _g_aux, _g_seg):
+        tab, o, d, thr, aux, u_p, bits = ctx.saved_tensors
+        g_rad = g_rad.contiguous()
+        go, gd, gthr, gtab = fused_span_bwd(
+            ctx.spec, tab, ctx.desc, {"o": o, "d": d, "thr": thr, "aux": aux},
+            u_p, bits, go.contiguous(), gd.contiguous(), gthr.contiguous(),
+            g_rad)
+        return gtab, go, gd, gthr, g_rad, None, None, None, None
+
+
+def fused_span(tab, desc, spec, state, u_all, span="multi"):
+    """Differentiable fused trace of one span: ``u_all`` is
+    [n_steps, N, >=10], ``tab`` the table of ``pack_tabvec`` with its
+    autograd history, ``spec`` a ``general_spec``. Every bounce of the span
+    runs (no early exit). ``span`` picks the route: ``"multi"`` (one kernel
+    per span each way) or ``"perbounce"`` (one per bounce each way). The
+    entry radiance's cotangent is the exit radiance's; ``aux`` and the
+    uniforms get none; ``segments`` is not differentiable. Returns RayState."""
+    _check_span(span)
+    st = pack_state(state)
+    u_p = pack_u(u_all.to(torch.float32))
+    fn = _SpanMulti if span == "multi" else _SpanPerBounce
+    o, d, thr, rad, aux, seg = fn.apply(
+        tab, st["o"], st["d"], st["thr"], st["rad"], st["aux"], u_p, spec, desc)
+    return unpack_state({"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux},
+                        state, seg)

@@ -8,12 +8,13 @@ one-sample MIS (material.pyx:327-352), the dielectric path roulette
 dielectric.pyx:313-328, homogeneous emitters) all preserve the reference's
 exact estimator so images converge to the same answer.
 
-``trace_rays`` runs the fused route (tracer/fused.py): every span of bounces
-goes through the hand-written kernels on the card, or through their plain
-PyTorch version for CPU tensors. A scene the fused route does not take
+``trace_rays`` and its differentiable counterpart ``trace_rays_diff`` run
+the fused route (tracer/fused.py): every span of bounces goes through the
+hand-written kernels on the card, forward and adjoint, or through their plain
+PyTorch versions for CPU tensors. A scene the fused route does not take
 raises ``NotImplementedError``: the per-stage wavefront route
-(intersect -> volume -> material dispatch as separate tensor programs) and
-the differentiable ``trace_rays_diff`` are not part of this package yet.
+(intersect -> volume -> material dispatch as separate tensor programs) is not
+part of this package yet.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 from ..compiler.scene import CompiledScene
 from . import fused
 
-__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays"]
+__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays",
+           "trace_rays_diff"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +71,10 @@ class RayState:
     # compact_schedule divisors are too aggressive for this scene
     overflow: Any
 
+
+# the differentiable route's default span mode: the faster of the two on an
+# NVIDIA H100 (chip_smoke.py, phase ``step``, times both)
+DIFF_SPAN = "perbounce"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -133,8 +139,7 @@ def _compact_lanes(st: RayState, divisor: int, lane_ids, radiance_full,
     keep = perm[:M]
     overflow_scale = torch.clamp(
         alive_count.to(torch.float32).to(st.throughput.dtype) / M, min=1.0)
-    radiance_full = radiance_full.clone()
-    radiance_full[lane_ids] = st.radiance
+    radiance_full = radiance_full.index_put((lane_ids,), st.radiance)
     lane_ids = lane_ids[keep]
     alive_kept = st.alive[keep]
     one = torch.ones((), dtype=overflow_scale.dtype, device=dev)
@@ -155,37 +160,26 @@ def _compact_lanes(st: RayState, divisor: int, lane_ids, radiance_full,
     return sub, lane_ids, radiance_full
 
 
-def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
-               generator=None, u_all=None, shifts=None, span="multi"):
-    """Trace to termination. Returns the final RayState.
-
-    ``generator`` is the ``torch.Generator`` (on the state's device) the
-    bounce uniforms and compaction rotations are drawn from, one
-    ``[n_steps, N, 10]`` draw per span. ``u_all`` instead supplies them: a
-    callable ``u_all(start, n_steps, n_lanes)`` returning that tensor (parity
-    tests inject the reference's stream this way); ``shifts`` likewise is a
-    callable ``shifts(bounces_done, alive_count)`` returning the rotation of
-    the compaction stage after that many bounces.
-
-    ``span`` selects the kernel route: ``"multi"`` (one kernel per span) or
-    ``"perbounce"`` (one kernel per bounce).
-
-    ``cfg.compact_schedule`` applies staged stream compaction: between spans
-    the batch partitions alive-first and shrinks, so the long tail of
-    surviving paths no longer holds the full batch width hostage.
-    """
-    fspec = fused.fused_spec(scene, cfg)
-    if fspec is None:
+def _fused_tables(scene, cfg, state, general):
+    tables = fused.scene_tables(scene, cfg, general=general)
+    if tables is None:
         raise NotImplementedError(
             "this scene is outside the fused route (it needs all-analytic "
             "simple entities, built-in materials and Beer/homogeneous "
             "volumes); the per-stage wavefront route is not part of this "
             "package yet")
+    if scene.device != state.origin.device:
+        raise ValueError(
+            f"scene on {scene.device}, rays on {state.origin.device}")
+    return tables
+
+
+def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
+    """The loop over spans both tracers share: ``run_span(st, u)`` traces one
+    span of ``u.shape[0]`` bounces; between the spans of
+    ``cfg.compact_schedule`` the batch partitions alive-first and shrinks.
+    Gathers and scatters are out of place, so autograd can follow them."""
     dev = state.origin.device
-    if scene.device != dev:
-        raise ValueError(f"scene on {scene.device}, rays on {dev}")
-    tab = fused.pack_tabvec(scene, fspec)
-    desc = torch.as_tensor(fused.spec_descriptor(fspec), device=dev)
 
     def run_range(st, start, end):
         nsteps = end - start
@@ -195,8 +189,7 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
         else:
             u = torch.rand((nsteps, n, fused.N_UNIFORMS), generator=generator,
                            dtype=torch.float32, device=dev)
-        return fused.fused_forward_span(tab, desc, fspec, st, u, span=span,
-                                        early_exit=cfg.early_exit)
+        return run_span(st, u)
 
     schedule = cfg.compact_schedule
     if not schedule:
@@ -219,7 +212,7 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
                    else shifts(done, int(st.alive.sum()))))
     if done < cfg.max_iters:
         st = run_range(st, done, cfg.max_iters)
-    radiance_full[lane_ids] = st.radiance
+    radiance_full = radiance_full.index_put((lane_ids,), st.radiance)
     return RayState(
         origin=state.origin,
         direction=state.direction,
@@ -230,3 +223,62 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
         segments=st.segments,
         overflow=st.overflow,
     )
+
+
+def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
+               generator=None, u_all=None, shifts=None, span="multi"):
+    """Trace to termination. Returns the final RayState.
+
+    ``generator`` is the ``torch.Generator`` (on the state's device) the
+    bounce uniforms and compaction rotations are drawn from, one
+    ``[n_steps, N, 10]`` draw per span. ``u_all`` instead supplies them: a
+    callable ``u_all(start, n_steps, n_lanes)`` returning that tensor (parity
+    tests inject the reference's stream this way); ``shifts`` likewise is a
+    callable ``shifts(bounces_done, alive_count)`` returning the rotation of
+    the compaction stage after that many bounces.
+
+    ``span`` selects the kernel route: ``"multi"`` (one kernel per span) or
+    ``"perbounce"`` (one kernel per bounce).
+
+    ``cfg.compact_schedule`` applies staged stream compaction: between spans
+    the batch partitions alive-first and shrinks, so the long tail of
+    surviving paths no longer holds the full batch width hostage.
+
+    The spec, the kernel descriptor and the scene table are kept on the
+    scene between calls; the table is packed again when a scene tensor was
+    edited or replaced.
+    """
+    fspec, entry = _fused_tables(scene, cfg, state, general=False)
+    tab = fused.forward_table(scene, fspec, entry)
+
+    def run_span(st, u):
+        return fused.fused_forward_span(tab, entry["desc"], fspec, st, u,
+                                        span=span, early_exit=cfg.early_exit)
+
+    with torch.no_grad():
+        return _trace_spans(cfg, state, run_span, generator, u_all, shifts)
+
+
+def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
+                    generator=None, u_all=None, shifts=None,
+                    span=DIFF_SPAN):
+    """Fixed-iteration differentiable variant of ``trace_rays``: every
+    bounce of every span runs (no early exit), and the returned radiance
+    carries an autograd graph back to the scene's float tensors (those that
+    require a gradient) through the adjoint kernels and ``pack_tabvec``.
+
+    It traces the general leaf records (``fused.general_spec``): the forward
+    route's world-space fast records carry other transform cotangents. The
+    table is packed anew on every call, as a node of the graph; the spec and
+    the descriptor are reused. ``generator``, ``u_all``, ``shifts`` and
+    ``span`` are those of ``trace_rays``. With ``cfg.compact_schedule`` the
+    gathers and scatters between spans are differentiable, and the radiance
+    of compacted-away lanes is already final.
+    """
+    fspec, entry = _fused_tables(scene, cfg, state, general=True)
+    tab = fused.pack_tabvec(scene, fspec)
+
+    def run_span(st, u):
+        return fused.fused_span(tab, entry["desc"], fspec, st, u, span=span)
+
+    return _trace_spans(cfg, state, run_span, generator, u_all, shifts)

@@ -12,11 +12,14 @@ PyTorch counterpart on the CPU.
   Ferrari solve on coefficients that grow like |o|^4 is ill-conditioned, and
   the reference itself moves by up to 4e-3 in hit distance between its jitted
   and its eager evaluation.
-* ``bounce_core`` runs against ``_bounce_core`` under plain ``jax.jit`` on
-  flat [N] arrays (no Pallas needed), N = 512, 5 bins, over 5 bounces of the
-  glass Cornell box and of the zoo scene. Decide mode: the fraction of lanes
-  whose bitfield differs is bounded by 0.5 % (XLA contracts a*b+c into FMAs,
-  PyTorch does not, so a lane at a threshold may choose differently). Replay
+* ``bounce_core`` runs against ``_bounce_core`` evaluated eagerly (under
+  ``jax.disable_jit()``: no XLA compile of the whole bounce, which took most
+  of this file's time) on flat [N] arrays (no Pallas needed), N = 512, 5
+  bins, over 5 bounces of the glass Cornell box and of the zoo scene. Decide
+  mode: the fraction of lanes whose bitfield differs is bounded by 0.5 % (a
+  lane at a threshold may choose differently: libm-level functions differ in
+  the last digit, and under ``jax.jit`` XLA also contracts a*b+c into FMAs,
+  which PyTorch does not). Replay
   mode, with the reference's bits: o, d, thr, rad_delta, depth at rtol 1e-4 /
   atol 1e-5, except lanes that hit the torus (5e-2, as above).
 """
@@ -203,7 +206,7 @@ def _np_state(o, d, thr, alive, depth):
 
 
 def _run_scene(js):
-    """STEPS bounces of ``js`` through the jitted JAX ``_bounce_core`` and, on
+    """STEPS bounces of ``js`` through the eager JAX ``_bounce_core`` and, on
     the same per-bounce inputs, through the port's ``bounce_core`` in decide
     and in replay mode. Returns one record per bounce."""
     ts = carry_scene(js)
@@ -214,12 +217,13 @@ def _run_scene(js):
     np.testing.assert_array_equal(np.asarray(jtab), ttab.numpy())
     tget = ttab.unbind(0).__getitem__
 
-    @jax.jit
     def jbounce(tab, o, d, thr, alive, depth, u):
-        return PF._bounce_core(
-            jspec, lambda k: tab[k],
-            dict(o=tuple(o), d=tuple(d), thr=tuple(thr), alive=alive,
-                 depth=depth), tuple(u), None)
+        with jax.disable_jit():
+            return PF._bounce_core(
+                jspec, lambda k: tab[k],
+                dict(o=tuple(jnp.asarray(o)), d=tuple(jnp.asarray(d)),
+                     thr=tuple(jnp.asarray(thr)), alive=jnp.asarray(alive),
+                     depth=jnp.asarray(depth)), tuple(jnp.asarray(u)), None)
 
     o, d = scenes.scatter_rays(N, seed=1)
     st = _np_state(o.T, d.T, np.ones((B, N), np.float32), np.ones(N, bool),

@@ -165,11 +165,16 @@ def test_unported_parts_raise():
     d = np.tile(np.asarray([[0, 0, 1]], np.float32), (4, 1))
     with pytest.raises(NotImplementedError, match="fused route"):
         T.render_batch(scene, T.RayConfig(), o, d, device="cpu")
+    # the differentiable tracer takes the same scene class, and a scene
+    # inside it traces
+    with pytest.raises(NotImplementedError, match="fused route"):
+        T.render_batch(scene, T.RayConfig(), o, d, differentiable=True,
+                       device="cpu")
     ok = T.compile_scene(scenes.furnace(), T.SpectralConfig(*SPECTRAL),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        T.render_batch(ok, T.RayConfig(), o, d, differentiable=True,
-                       device="cpu")
+    st = T.render_batch(ok, T.RayConfig(max_iters=2), o, d, differentiable=True,
+                        device="cpu")
+    assert torch.equal(st.radiance, torch.ones(4, B))
     assert Lambert().MAT_TYPE == 1
 
 
