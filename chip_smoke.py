@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the fused CUDA kernels from source_tpu_torch/csrc/ (into
-source_tpu_torch/_build/), forward and adjoint, holds each against its plain
-PyTorch version on the card, runs the furnace check, and drives the two main
-paths on the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth
-16, 24 iterations: forward through ``compile_scene`` -> ``render_batch``, and
-the training step through ``render_loss_and_grads``, each once through the
-whole-span kernels and once through the per-bounce kernels. Every phase
+Builds the CUDA kernels from source_tpu_torch/csrc/ (into
+source_tpu_torch/_build/): the fused bounce kernels, forward and adjoint, and
+the analytic-BVH nearest-hit kernel. Holds each against its plain PyTorch
+version on the card, runs the furnace check, and drives the main paths: on
+the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24
+iterations, forward through ``compile_scene`` -> ``render_batch`` and the
+training step through ``render_loss_and_grads``, each once through the
+whole-span kernels and once through the per-bounce kernels; and the CSG demo
+(demos/csg.py) at 512x512 rays, 15 bins, max_depth 24, 32 iterations, with
+compaction, through ``render_batch`` on the wavefront route. Every phase
 prints one JSON line; any failure exits non-zero. Without a CUDA device the
-script exits 2 and prints no result. ``--phases grad_kernels,step`` runs a
+script exits 2 and prints no result. ``--phases bvh_kernels,wavefront`` runs a
 subset while developing (the last line is then not a pass).
 """
 
@@ -47,6 +50,18 @@ ROUTE_TOL = 2e-4            # gradient fields between the two span routes
 EULER_TOL = 1e-2            # sum(value * gradient) over emission rows vs 2 loss
 N_ZOO = 65536
 FLAGSHIP = dict(width=512, height=512, bins=15, max_depth=16, max_iters=24)
+# the CSG demo as benchmarks/suite.py::bench_csg renders it (camera defaults:
+# extinction 0.01 from depth 3, MIS on at weight 0.25, f32 spectral state)
+CSG = dict(width=512, height=512, fov=75.0, position=(0.0, 0.0, -4.0), bins=15,
+           max_depth=24, max_iters=32, extinction_prob=0.01,
+           compact_schedule=((4, 4), (4, 4)))
+N_FIELD = 262144
+# f32 operations one BVH node visit and one item test cost, counted from the
+# closed forms (slab test; record transform, closed form, normal), for the
+# operations side of the kernel's bound
+NODE_OPS = 26
+ITEM_OPS = {0: 110, 1: 110, 2: 120, 3: 130, 4: 130, 5: 330, 6: 40, 7: 50}
+CSG_CHILD_OPS = 150  # per child: transform, interval, endpoint masks, program
 
 
 def emit(phase, **kw):
@@ -292,12 +307,18 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
     return res
 
 
-def phase_env(fused):
+def phase_env(fused, bvh):
     t0 = time.time()
     jobs = [(b, which) for which in ("fwd", "bwd") for b in (FLAGSHIP["bins"], 5)]
+    jobs.append((None, "bvh"))
+
+    def build(job):
+        if job[1] == "bvh":
+            return bvh.build_library(verbose=True)[1]
+        return fused.build_library(job[0], job[1], verbose=True)[1]
+
     with ThreadPoolExecutor(len(jobs)) as pool:
-        logs = list(pool.map(
-            lambda j: fused.build_library(j[0], j[1], verbose=True)[1], jobs))
+        logs = list(pool.map(build, jobs))
     build_s = time.time() - t0
 
     def ptxas(log):
@@ -314,7 +335,7 @@ def phase_env(fused):
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
          nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
-         ptxas_bwd_b15=ptxas(logs[2]))
+         ptxas_bwd_b15=ptxas(logs[2]), ptxas_bvh=ptxas(logs[4]))
 
 
 def phase_kernels(T, fused, scenes):
@@ -639,17 +660,24 @@ def phase_furnace(T, scenes):
 
 
 KERNELS = ("fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
-           "fused_span_bwd")
+           "fused_span_bwd", "analytic_bvh_winner")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
+def wrappers(fused):
+    """Each kernel's wrapper, which counts its launches."""
+    from source_tpu_torch.tracer import analytic_bvh
+    return {k: getattr(analytic_bvh if k == "analytic_bvh_winner" else fused, k)
+            for k in KERNELS}
+
+
 def reset_counts(fused):
-    for k in KERNELS:
-        getattr(fused, k).launches = 0
+    for w in wrappers(fused).values():
+        w.launches = 0
 
 
 def read_counts(fused):
-    return {k: getattr(fused, k).launches for k in KERNELS}
+    return {k: w.launches for k, w in wrappers(fused).items()}
 
 
 def flagship(T, fused, scenes):
@@ -777,7 +805,8 @@ def phase_main(T, fused, scenes):
          span_stages=stages,
          segments_per_s_span=seg_multi / wall_multi,
          segments_per_s_perbounce=seg_per / wall_per,
-         mis_mean_diff=diff, mis_standard_error=se)
+         mis_mean_diff=diff, mis_standard_error=se,
+         mis_runs_identical=bool(torch.equal(runs[True], runs[False])))
     return launches
 
 
@@ -941,7 +970,300 @@ def phase_step(T, fused, scenes):
     return launches
 
 
-def kernels_line(cornell, grad, launches, step_launches):
+def min_advance(o):
+    """intersect_scene's minimum advance per ray."""
+    return 1e-4 * torch.clamp(torch.amax(torch.abs(o), dim=-1), min=1.0)
+
+
+def bvh_case(name, scene, o, d, sort_rays, bvh):
+    """Hold the analytic-BVH kernel against its plain version on one input;
+    returns the measurements."""
+    tables, meta = scene.leaf_bvh, scene.leaf_bvh_meta
+    eps = min_advance(o)
+    N = o.shape[0]
+    k = bvh.winner_records(tables, meta, o, d, eps, sort_rays)
+    torch.cuda.synchronize()
+    p = bvh.analytic_bvh_winner_plain(tables, meta, o, d, eps)
+    same = torch.ones(N, dtype=torch.bool, device="cuda")
+    for key in ("leaf", "entity", "inside", "crossing_hi"):
+        same &= k[key] == p[key]
+    flip = 1.0 - float(same.float().mean())
+    hit = p["leaf"] >= 0
+    leaf_type = torch.zeros(scene.n_leaves, dtype=torch.int64, device="cuda")
+    for tid, a, b in scene.type_slices:
+        leaf_type[a:b] = tid
+    torus = hit & (leaf_type[p["leaf"].clamp(min=0).long()] == 5)
+    dt = (k["t"] - p["t"]).abs()
+    dn = (k["normal"] - p["normal"]).abs().amax(1)
+    strict = same & hit & ~torus
+    res = dict(scene=name, n=N, sort_rays=sort_rays, hit=float(hit.float().mean()),
+               flip=flip, max_abs=0.0, torus_lanes=int(torus.sum()),
+               torus_abs=0.0, torus_beyond=0.0)
+    ok = flip <= MAX_FLIP
+    if bool(strict.any()):
+        res["max_abs"] = max(float(dt[strict].max()), float(dn[strict].max()))
+        ok &= bool((dt[strict] <= ATOL + RTOL * p["t"][strict].abs()).all())
+        ok &= bool((dn[strict] <= ATOL + RTOL).all())
+    loose = same & torus
+    if bool(loose.any()):
+        # torus lanes beside a float64 evaluation of the plain version: the
+        # f32 quartic is ill-conditioned near grazing hits (ROADMAP queue 3),
+        # so kernel and plain version are each held to it, not to each other
+        tab64 = {t: tables[t].double() for t in ("nodes", "leaves", "csg")}
+        p64 = bvh.analytic_bvh_winner_plain(
+            tab64, meta, o[loose].double(), d[loose].double(),
+            eps[loose].double())
+        on = p64["leaf"] == p["leaf"][loose]
+        t64 = p64["t"][on]
+        lim = ATOL + RTOL * t64.abs()
+        k_dev = (k["t"][loose][on].double() - t64).abs()
+        p_dev = (p["t"][loose][on].double() - t64).abs()
+        res.update(torus_abs=float(dt[loose].max()),
+                   torus_beyond=float((dt[loose] > ATOL + RTOL * p["t"][loose].abs())
+                                      .float().mean()),
+                   torus_kernel_vs_f64=float(k_dev.max()),
+                   torus_plain_vs_f64=float(p_dev.max()),
+                   torus_kernel_beyond_f64=float((k_dev > lim).double().mean()),
+                   torus_plain_beyond_f64=float((p_dev > lim).double().mean()))
+        ok &= (res["torus_kernel_vs_f64"]
+               <= F64_FACTOR * res["torus_plain_vs_f64"] + ATOL)
+        ok &= (res["torus_kernel_beyond_f64"]
+               <= F64_FACTOR * res["torus_plain_beyond_f64"] + 1.0 / int(on.sum()))
+    if not ok or not bool(torch.isfinite(k["normal"]).all()):
+        fail(f"{name} analytic_bvh_winner: kernel against plain version {res}")
+    # the kernel alone, on the rays in the order it walks them
+    if sort_rays and N > bvh._TILE:
+        order = bvh._coherence_order(o, d, meta[3], meta[4])
+        o_k, d_k, e_k = o[order], d[order], eps[order]
+    else:
+        o_k, d_k, e_k = o, d, eps
+    ms = time_ms(lambda: bvh._launch(tables, meta, o_k, d_k, e_k), 20)
+    wrapper_ms = time_ms(lambda: bvh.winner_records(tables, meta, o, d, eps,
+                                                    sort_rays), 20)
+    plain_ms = time_ms(lambda: bvh.analytic_bvh_winner_plain(
+        tables, meta, o, d, eps), 1)
+    table_bytes = 4 * sum(tables[t].numel() for t in ("nodes", "leaves", "csg"))
+    nbytes = 4 * N * (7 + 8) + table_bytes
+    kinds = p["kind_tests"].tolist()
+    ops = (NODE_OPS * int(p["nodes_visited"].sum())
+           + sum(ITEM_OPS[i] * kinds[i] for i in ITEM_OPS)
+           + CSG_CHILD_OPS * int(p["csg_children"]))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    nv, iv = p["nodes_visited"].float(), p["items_visited"].float()
+    res.update(
+        ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops,
+        nodes_per_ray=dict(mean=float(nv.mean()),
+                           p99=float(torch.quantile(nv, 0.99))),
+        items_per_ray=dict(mean=float(iv.mean()),
+                           p99=float(torch.quantile(iv, 0.99))),
+        item_tests_by_kind=kinds, n_nodes=int(meta[0]))
+    return res
+
+
+def csg_setup(T, scenes):
+    """The CSG demo, its ray configuration and its 512x512 camera rays."""
+    scene = T.compile_scene(scenes.csg_world(),
+                            T.SpectralConfig(375.0, 740.0, CSG["bins"]))
+    cfg = T.RayConfig(
+        max_depth=CSG["max_depth"], extinction_prob=CSG["extinction_prob"],
+        extinction_min_depth=3, importance_sampling=True,
+        important_path_weight=0.25, max_iters=CSG["max_iters"],
+        compact_schedule=CSG["compact_schedule"], spectral_dtype="float32")
+    o, d = scenes.camera_rays(CSG["width"], CSG["height"], CSG["fov"],
+                              CSG["position"])
+    return scene, cfg, torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
+
+
+def phase_bvh_kernels(T, bvh, scenes):
+    from source_tpu_torch.tracer.wavefront import trace_step
+    scene, cfg, o, d = csg_setup(T, scenes)
+    # the CSG demo's rays as intersect_scene hands them to the kernel: its
+    # 7 BVH items are below the 64 at which intersect_scene sorts the rays
+    sort = len(scene.bvh_leaf_ids) >= 64
+    camera = bvh_case("csg_camera", scene, o, d, sort, bvh)
+    # the rays of the third bounce: two wavefront bounces on, dead lanes
+    # parked as trace_step parks them
+    st = T.init_rays(o, d, CSG["bins"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for _ in range(2):
+            u = torch.rand((o.shape[0], 10), generator=gen, device="cuda")
+            st = trace_step(scene, cfg, st, u, differentiable=False)
+    park = torch.full((1, 3), 3.0e7, device="cuda")
+    o2 = torch.where(st.alive[:, None], st.origin, park).contiguous()
+    bounce = bvh_case("csg_bounce2", scene, o2, st.direction.contiguous(), sort,
+                      bvh)
+    bounce["alive"] = int(st.alive.sum())
+    field = T.compile_scene(scenes.leaf_field(), T.SpectralConfig(375.0, 740.0, 5))
+    of, df = scenes.field_rays(N_FIELD, seed=6)
+    deep = bvh_case("leaf_field", field, torch.as_tensor(of).cuda(),
+                    torch.as_tensor(df).cuda(), True, bvh)
+    emit("bvh_kernels", tolerance=dict(rtol=RTOL, atol=ATOL, max_flip=MAX_FLIP,
+                                       f64_factor=F64_FACTOR),
+         analytic_bvh_winner=[camera, bounce, deep])
+    return camera
+
+
+class StageClock:
+    """Host milliseconds, synchronised on both sides, spent in the wrapped
+    functions of one instrumented run."""
+
+    def __init__(self):
+        self.ms = {}
+        self.undo = []
+
+    def wrap(self, module, name, stage):
+        real = getattr(module, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[stage] = self.ms.get(stage, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(module, name, timed)
+        self.undo.append((module, name, real))
+
+    def restore(self):
+        for module, name, real in reversed(self.undo):
+            setattr(module, name, real)
+        self.undo = []
+
+
+def phase_wavefront(T, fused, scenes):
+    from source_tpu_torch.tracer import intersect as I
+    from source_tpu_torch.tracer import wavefront as W
+    scene, cfg, o, d = csg_setup(T, scenes)
+    n, bins = o.shape[0], CSG["bins"]
+    if fused.scene_tables(scene, cfg) is not None:
+        fail("wavefront: the CSG demo should be outside the fused route")
+
+    # the main path: one render_batch, trace_step calls counted beside the
+    # kernel launches
+    steps = StageClock()
+    calls = [0]
+    real_step = W.trace_step
+
+    def counting_step(*a, **kw):
+        calls[0] += 1
+        return real_step(*a, **kw)
+
+    W.trace_step = counting_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        st = T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        launches = read_counts(fused)
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        W.trace_step = real_step
+    if launches != dict(NO_LAUNCHES, analytic_bvh_winner=calls[0]) or not (
+            1 <= calls[0] <= cfg.max_iters):
+        fail(f"wavefront: want one analytic_bvh_winner launch per traced "
+             f"bounce ({calls[0]}) and nothing else: {launches}")
+    rad = st.radiance
+    if tuple(rad.shape) != (n, bins) or not bool(torch.isfinite(rad).all()):
+        fail("wavefront: radiance has the wrong shape or is not finite")
+    if not float(rad.mean()) > 0.0:
+        fail("wavefront: no radiance reached the camera")
+
+    walls, segs = [], 0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        segs = int(run.segments)
+    wall = float(np.median(walls[1:]))
+
+    # one instrumented run: where the wall time goes, stage by stage
+    for module, name, stage in (
+            (I, "analytic_bvh_winner", "bvh_kernel"),
+            (W, "intersect_scene", "intersect"),
+            (W, "_volume_interaction", "volume"),
+            (W, "_surface_interaction", "surface"),
+            (W, "_compact_lanes", "compaction")):
+        steps.wrap(module, name, stage)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        inst_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        steps.restore()
+    stage = dict(steps.ms)
+    stage["intersect_rest"] = stage.pop("intersect") - stage["bvh_kernel"]
+    stage["other"] = inst_ms - sum(stage.values())
+
+    # the route argument: the Cornell box, fused against wavefront route on
+    # the same uniforms, f32 spectral state
+    cb = T.compile_scene(scenes.cornell_box(glass=True),
+                         T.SpectralConfig(375.0, 740.0, bins))
+    cfg_c = T.RayConfig(max_depth=FLAGSHIP["max_depth"],
+                        max_iters=FLAGSHIP["max_iters"])
+    oc, dc = scenes.pinhole_rays(256, 256)
+    oc, dc = torch.as_tensor(oc).cuda(), torch.as_tensor(dc).cuda()
+    u_fix = torch.rand((cfg_c.max_iters, oc.shape[0], fused.N_UNIFORMS),
+                       device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(13))
+
+    def same_u(start, n_steps, n_lanes):
+        return u_fix[start:start + n_steps, :n_lanes]
+
+    by_fused = T.render_batch(cb, cfg_c, oc, dc, u_all=same_u)
+    by_wave = T.render_batch(cb, cfg_c, oc, dc, u_all=same_u, route="wavefront")
+    a, b = by_fused.radiance, by_wave.radiance
+    beyond = float(((a - b).abs() > ATOL + RTOL * a.abs()).any(1).float().mean())
+    r_diff, r_se, r_ok = mean_within(a, b)
+    seg_dev = abs(int(by_wave.segments) - int(by_fused.segments)) / int(
+        by_fused.segments)
+    if beyond > MAX_FLIP or not r_ok or seg_dev > MAX_FLIP:
+        fail(f"wavefront: route check on the Cornell box: {beyond} of lanes "
+             f"beyond tolerance, means {r_diff} (se {r_se}), segments {seg_dev}")
+
+    # MIS on against off on the CSG demo: the estimator's mean must not move
+    # (its surfaces are glass and emitters, which do not sample the lights:
+    # the two runs are then the same, and the check is reported as such)
+    runs = {}
+    for mis in (True, False):
+        c = dataclasses.replace(cfg, importance_sampling=mis)
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        runs[mis] = T.render_batch(scene, c, o[::4].contiguous(),
+                                   d[::4].contiguous(), gen).radiance.t()
+    diff, se, mis_ok = mean_within(runs[True], runs[False], n_sigma=4.0)
+    if not mis_ok:
+        fail(f"wavefront: MIS on/off means differ by {diff} (standard error {se})")
+
+    emit("wavefront", rays=n, bins=bins, max_depth=cfg.max_depth,
+         max_iters=cfg.max_iters, compact_schedule=cfg.compact_schedule,
+         traced_bounces=calls[0], launches=launches,
+         segments=int(st.segments), overflow=int(st.overflow),
+         mean_radiance_per_bin=[round(float(x), 5) for x in rad.mean(0)],
+         wall_ms=wall * 1e3, walls_ms=[w * 1e3 for w in walls[1:]],
+         segments_per_s=segs / wall, instrumented_wall_ms=inst_ms,
+         stages_ms=stage, peak_bytes=peak,
+         route_check=dict(rays=oc.shape[0], beyond=beyond, mean_diff=r_diff,
+                          mean_se=r_se, segments_rel_dev=seg_dev),
+         mis_mean_diff=diff, mis_standard_error=se,
+         mis_runs_identical=bool(torch.equal(runs[True], runs[False])))
+    return launches
+
+
+def kernels_line(cornell, grad, launches, step_launches, bvh_row,
+                 wave_launches):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -964,25 +1286,35 @@ def kernels_line(cornell, grad, launches, step_launches):
             launches=count[name], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
+    # the analytic-BVH kernel on the CSG demo's camera rays; its launches
+    # are those of the wavefront route's render_batch of the CSG demo
+    rows.append(dict(
+        name="analytic_bvh_winner", route="cuda", source=src + "analytic_bvh.cu",
+        replaces="source_tpu/tracer/pallas_analytic.py:702",
+        launches=wave_launches["analytic_bvh_winner"],
+        max_abs_err=bvh_row["max_abs"], ms=bvh_row["ms"],
+        plain_ms=bvh_row["plain_ms"], bound_ms=bvh_row["bound_ms"],
+        bound_by=bvh_row["bound_by"], library_ms=None))
     return {"kernels": rows}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,kernels,furnace,main,grad_kernels,step")
+                    default="env,kernels,furnace,main,grad_kernels,step,"
+                            "bvh_kernels,wavefront")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import source_tpu_torch as T
     from source_tpu_torch import scenes
-    from source_tpu_torch.tracer import fused
+    from source_tpu_torch.tracer import analytic_bvh, fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cornell = grad = launches = step_launches = None
+    cornell = grad = launches = step_launches = bvh_row = wave = None
     if "env" in phases:
-        phase_env(fused)
+        phase_env(fused, analytic_bvh)
     if "kernels" in phases:
         cornell = phase_kernels(T, fused, scenes)
     if "furnace" in phases:
@@ -993,12 +1325,16 @@ def main():
         grad = phase_grad_kernels(T, fused, scenes)
     if "step" in phases:
         step_launches = phase_step(T, fused, scenes)
-    if None in (cornell, grad, launches, step_launches):
+    if "bvh_kernels" in phases:
+        bvh_row = phase_bvh_kernels(T, analytic_bvh, scenes)
+    if "wavefront" in phases:
+        wave = phase_wavefront(T, fused, scenes)
+    if None in (cornell, grad, launches, step_launches, bvh_row, wave):
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
-    print(json.dumps(kernels_line(cornell, grad, launches, step_launches)),
-          flush=True)
+    print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
+                                  bvh_row, wave)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

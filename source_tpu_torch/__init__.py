@@ -2,16 +2,20 @@
 
 The port of ``source_tpu`` to PyTorch, with hand-written CUDA kernels for
 NVIDIA Hopper: the scenegraph compiles to flat SoA device tensors and path
-tracing runs as a fused wavefront kernel. It keeps the directory layout and
-names of ``source_tpu`` so a reader finds each counterpart.
+tracing runs as a wavefront. It keeps the directory layout and names of
+``source_tpu`` so a reader finds each counterpart.
 
-Covered so far: the fused trace of all-analytic scenes (the six solids, the
-built-in materials, Beer-Lambert and homogeneous volumes), forward through
-``compile_scene`` -> ``render_batch``/``trace_rays`` and differentiable
-through ``render_loss_and_grads`` -> ``trace_rays_diff``, which returns the
-gradient of an L2 loss with respect to every float table of the scene. Entry
-points take ``device=`` and default to ``"cuda"``; they raise if no card is
-there. Everything else raises ``NotImplementedError``.
+Covered so far: analytic scenes with built-in materials, Beer-Lambert and
+homogeneous volumes. Forward, ``compile_scene`` -> ``render_batch``/
+``trace_rays`` takes the fused route (one bounce kernel) for simple-entity
+scenes and the wavefront route (``trace_step``: the analytic-BVH kernel, then
+the volume and surface stages as tensor programs) for the rest, CSG among
+them. Differentiable, ``render_loss_and_grads`` -> ``trace_rays_diff``
+returns the gradient of an L2 loss with respect to every float table of a
+scene the fused route takes. Entry points take ``device=`` and default to
+``"cuda"``; they raise if no card is there. Meshes, custom BSDFs, modifiers,
+inhomogeneous volumes and the differentiable wavefront route raise
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"
@@ -23,7 +27,7 @@ from .core import (  # noqa: F401
 )
 from .compiler import CompiledScene, SpectralConfig, compile_scene  # noqa: F401
 from .tracer.wavefront import (  # noqa: F401
-    RayConfig, RayState, init_rays, trace_rays, trace_rays_diff,
+    RayConfig, RayState, init_rays, trace_rays, trace_rays_diff, trace_step,
 )
 from .parallel import render_batch, render_loss_and_grads  # noqa: F401
 from .bridge import scene_from_numpy  # noqa: F401
@@ -34,6 +38,7 @@ __all__ = [
     "rotate_vector", "rotate_x", "rotate_y", "rotate_z",
     "CompiledScene", "SpectralConfig", "compile_scene",
     "RayConfig", "RayState", "init_rays", "trace_rays", "trace_rays_diff",
+    "trace_step",
     "render_batch", "render_loss_and_grads",
     "scene_from_numpy",
 ]

@@ -4,7 +4,9 @@
 static fields of a scene compiled elsewhere (for instance by the JAX
 package, after ``np.asarray`` on its side), so both packages can trace the
 same scene — including scenes whose host classes this package does not
-carry yet.
+carry yet. The packed analytic-BVH tables come across too (``arrays`` key
+``"leaf_bvh"``: a dict of the "nodes", "leaves" and "csg" arrays, or None),
+so both packages intersect through the same tree.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from .compiler.scene import CompiledScene, resolve_device
 
-__all__ = ["scene_from_numpy", "ARRAY_FIELDS", "STATIC_FIELDS"]
+__all__ = ["scene_from_numpy", "ARRAY_FIELDS", "STATIC_FIELDS", "BVH_TABLES"]
 
 ARRAY_FIELDS = (
     "leaf_w2l", "leaf_l2w", "leaf_params", "leaf_entity", "entity_material",
@@ -26,13 +28,16 @@ STATIC_FIELDS = (
     "type_slices", "n_leaves", "n_entities", "simple_leaf_of_entity",
     "csg_entities", "mat_types", "entity_material_static", "volume_entities",
     "mesh_entities", "mix_remaps", "custom_materials", "leaf_fast_static",
-    "has_roughen", "has_importance", "n_bins",
+    "has_roughen", "has_importance", "n_bins", "leaf_bvh_meta",
+    "bvh_leaf_ids", "kernel_csg_entities",
 )
+BVH_TABLES = ("nodes", "leaves", "csg")
 
 
 def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
     """CompiledScene from ``arrays`` (name -> numpy array, ARRAY_FIELDS) and
-    ``static`` (name -> plain Python value, STATIC_FIELDS). Rows of
+    ``static`` (name -> plain Python value, STATIC_FIELDS), and the BVH
+    tables under ``arrays["leaf_bvh"]`` when the scene has them. Rows of
     ``volume_entities`` carry ``None`` in place of the material object."""
     device = resolve_device(device)
     missing = [k for k in ARRAY_FIELDS if k not in arrays]
@@ -47,8 +52,13 @@ def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
         for k in ARRAY_FIELDS
     }
 
+    bvh = arrays.get("leaf_bvh")
+    if bvh is not None:
+        bvh = {k: torch.as_tensor(np.array(bvh[k]), dtype=torch.float32)
+               .to(device) for k in BVH_TABLES}
+
     def frozen(v):
         return tuple(frozen(x) for x in v) if isinstance(v, (list, tuple)) else v
 
-    return CompiledScene(**tensors,
+    return CompiledScene(**tensors, leaf_bvh=bvh,
                          **{k: frozen(static[k]) for k in STATIC_FIELDS})

@@ -8,7 +8,8 @@ version, spectral slice) into:
   * a leaf table — every analytic solid in the scene, with world<->local
     transforms and a parameter block, grouped by primitive type;
   * an entity table — the traceable objects; a simple entity maps to one
-    leaf;
+    leaf, a CSG entity carries a postfix boolean program over its leaves
+    (csg.pyx's interval logic as bounded all-hits);
   * material tables — per-material-id type codes, static params, spectral
     curves baked onto the render's wavelength grid, and per-slice band
     averages (dielectric.pyx:176-177 semantics);
@@ -19,9 +20,13 @@ The tensors are the scene's data; structural information (counts, type
 slices, static maps) is plain Python, so the tracer can derive a static
 kernel descriptor from it.
 
-Scene class of this package so far: simple analytic entities. Mesh and CSG
-entities raise ``NotImplementedError``; the packed analytic-leaf BVH tables
-(``leaf_bvh``) are never built.
+  * the packed analytic-leaf BVH tables (``leaf_bvh``,
+    tracer/analytic_bvh.py) over the simple leaves and the small CSG
+    entities, built under the reference's own conditions, so both packages
+    take the same route for the same scene.
+
+Scene class of this package so far: analytic entities, simple and CSG. Mesh
+entities raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,10 +48,14 @@ from ..optical.material.base import (
     VOL_NONE,
 )
 from ..primitive import analytic as _a
-from ..primitive.shapes import OP_LEAF
+from ..primitive.shapes import OP_INTERSECT, OP_LEAF, OP_SUBTRACT, OP_UNION
 
 __all__ = ["CompiledScene", "compile_scene", "SpectralConfig",
-           "resolve_device"]
+           "resolve_device", "LEAF_BVH_MIN_LEAVES"]
+
+# fewest BVH items (simple analytic leaves plus small CSG entities) for which
+# the packed leaf-BVH tables are built: the reference's threshold
+LEAF_BVH_MIN_LEAVES = 2
 
 
 def resolve_device(device):
@@ -100,12 +109,14 @@ class CompiledScene:
     wavelengths: Any = None  # f32[B]
     # triangle meshes: always empty until the mesh path is part of this package
     meshes: Any = ()
-    # packed analytic-leaf BVH planes: always None until that kernel is part
-    # of this package
+    # packed analytic-leaf BVH tables (tracer/analytic_bvh.py): dict of f32
+    # tensors "nodes", "leaves", "csg", or None below LEAF_BVH_MIN_LEAVES
+    # items or above the tables' size limit. They BAKE the leaf transforms
+    # and params at compile time, as the fused tracer's static fields do
     leaf_bvh: Any = None
 
     # --- static structure ---
-    # NOTE: ``leaf_fast_static`` and ``entity_material_static`` BAKE the
+    # NOTE: ``leaf_bvh``, ``leaf_fast_static`` and ``entity_material_static`` BAKE the
     # transforms / material assignment at compile time. Replacing
     # ``leaf_w2l``/``entity_material`` on a CompiledScene leaves the kernels
     # dispatching stale structure: re-run ``compile_scene`` after any
@@ -125,8 +136,13 @@ class CompiledScene:
     mesh_entities: Tuple = ()
     mix_remaps: Tuple = ()
     custom_materials: Tuple = ()
+    # (n_nodes, max_leaf, present record types, root_lo, root_hi, present
+    # analytic types, CSG signatures) of leaf_bvh; () when absent
     leaf_bvh_meta: Tuple = ()
+    # GLOBAL leaf ids covered by leaf_bvh (excluded from streaming), the
+    # children of kernel-resolved CSG entities included
     bvh_leaf_ids: Tuple = ()
+    # entities whose CSG boolean is resolved inside the BVH kernel
     kernel_csg_entities: Tuple = ()
     # per-leaf world-space fast-record kind for the fused bounce kernel
     # (0 = general local-frame, 1 = pure-translation sphere -> world sphere,
@@ -152,6 +168,75 @@ class CompiledScene:
         return self.leaf_w2l.device
 
 
+def _program_to_closure(program):
+    """A postfix CSG program as a closure
+    inside(leaf_contains: bool[..., L]) -> bool[...] over local leaf
+    positions (the program is static structure, so this unrolls to plain
+    boolean tensor ops)."""
+    ops = tuple(program)
+
+    def inside(leaf_contains):
+        stack = []
+        for op, operand in ops:
+            if op == OP_LEAF:
+                stack.append(leaf_contains[..., operand])
+            elif op == OP_UNION:
+                b = stack.pop()
+                a = stack.pop()
+                stack.append(a | b)
+            elif op == OP_INTERSECT:
+                b = stack.pop()
+                a = stack.pop()
+                stack.append(a & b)
+            elif op == OP_SUBTRACT:
+                b = stack.pop()
+                a = stack.pop()
+                stack.append(a & ~b)
+            else:
+                raise ValueError(f"Unknown CSG opcode {op}")
+        if len(stack) != 1:
+            raise ValueError("Malformed CSG program.")
+        return stack[0]
+
+    return inside
+
+
+def _leaf_bvh(leaf_records, leaf_entity, l2w, w2l, params, csg_entities):
+    """The packed leaf-BVH tables (numpy) and meta, the covered global leaf
+    ids and the kernel-resolved CSG entities, under the reference's
+    conditions (source_tpu/compiler/scene.py:285-345): simple leaves of
+    BVH_TYPES, CSG entities of at most MAX_CSG_CHILD children of
+    CSG_CHILD_TYPES as single items, at least LEAF_BVH_MIN_LEAVES items and
+    tables within the size limit; (None, (), [], []) otherwise."""
+    from ..tracer.analytic_bvh import (
+        BVH_TYPES, CSG_CHILD_TYPES, MAX_CSG_CHILD, pack_leaf_bvh_host,
+    )
+
+    csg_leaf_set = {g for _, leaf_ids, _ in csg_entities for g in leaf_ids}
+    bvh_rows = [i for i, r in enumerate(leaf_records)
+                if r[0] in BVH_TYPES and i not in csg_leaf_set]
+    csg_items = []
+    kernel_csg = []
+    for e, leaf_ids, program in csg_entities:
+        if (len(leaf_ids) <= MAX_CSG_CHILD
+                and all(leaf_records[g][0] in CSG_CHILD_TYPES
+                        for g in leaf_ids)):
+            csg_items.append((e, program, [
+                (g, leaf_records[g][0], l2w[g], w2l[g], params[g])
+                for g in leaf_ids]))
+            kernel_csg.append(e)
+    if len(bvh_rows) + len(csg_items) < LEAF_BVH_MIN_LEAVES:
+        return None, (), [], []
+    tables, meta = pack_leaf_bvh_host(
+        [leaf_records[i][0] for i in bvh_rows], l2w[bvh_rows], w2l[bvh_rows],
+        params[bvh_rows], bvh_rows,
+        leaf_entities=[leaf_entity[i] for i in bvh_rows], csg_items=csg_items)
+    if tables is None:
+        return None, (), [], []
+    covered = sorted(g for (_e, _p, ch) in csg_items for (g, *_r) in ch)
+    return tables, meta, bvh_rows + covered, kernel_csg
+
+
 def compile_scene(world: World, spectral: SpectralConfig,
                   dtype=torch.float32, device="cuda") -> CompiledScene:
     """Flatten a World scenegraph into a CompiledScene for one spectral slice."""
@@ -175,10 +260,6 @@ def compile_scene(world: World, spectral: SpectralConfig,
         leaf_base = len(leaf_records)
         leaves = prim.csg_leaves(prim.to_root())
         program = prim.csg_program(leaf_base)
-        if not (len(program) == 1 and program[0][0] == OP_LEAF):
-            raise NotImplementedError(
-                "CSG entities need the streaming intersection path, which "
-                "this package does not carry yet")
         entities.append(prim)
         programs.append(program)
         for leaf in leaves:
@@ -196,7 +277,8 @@ def compile_scene(world: World, spectral: SpectralConfig,
     remap = {old: new for new, old in enumerate(order)}
     leaf_records = [leaf_records[i] for i in order]
     leaf_entity = [leaf_entity[i] for i in order]
-    simple_leaf_of_entity = [remap[prog[0][1]] for prog in programs]
+    programs = [[(op, remap[arg] if op == OP_LEAF else arg) for op, arg in prog]
+                for prog in programs]
 
     type_slices = []
     start = 0
@@ -208,6 +290,23 @@ def compile_scene(world: World, spectral: SpectralConfig,
     l2w = np.stack([r[1].to_array(np.float64) for r in leaf_records])
     w2l = np.stack([r[1].inverse().to_array(np.float64) for r in leaf_records])
     params = np.stack([np.asarray(r[2], dtype=np.float64) for r in leaf_records])
+
+    # simple entities map to their leaf; CSG entities keep their program over
+    # local (gathered) leaf positions, with the global leaf ids beside it
+    simple_leaf_of_entity = []
+    csg_entities = []  # (entity_id, global leaf ids, local program)
+    for e, prog in enumerate(programs):
+        if len(prog) == 1 and prog[0][0] == OP_LEAF:
+            simple_leaf_of_entity.append(prog[0][1])
+        else:
+            simple_leaf_of_entity.append(-1)
+            leaf_ids = tuple(arg for op, arg in prog if op == OP_LEAF)
+            local = {g: i for i, g in enumerate(leaf_ids)}
+            csg_entities.append((e, leaf_ids, tuple(
+                (op, local[arg] if op == OP_LEAF else arg) for op, arg in prog)))
+
+    leaf_bvh, leaf_bvh_meta, bvh_rows, kernel_csg = _leaf_bvh(
+        leaf_records, leaf_entity, l2w, w2l, params, csg_entities)
 
     # world-space fast-record detection for the fused bounce kernel
     leaf_fast = []
@@ -350,11 +449,17 @@ def compile_scene(world: World, spectral: SpectralConfig,
         wavelengths=ten(
             spectral.min_wavelength
             + (np.arange(B) + 0.5) * spectral.delta_wavelength),
+        leaf_bvh=(None if leaf_bvh is None else
+                  {k: ten(v) for k, v in leaf_bvh.items()}),
+        leaf_bvh_meta=leaf_bvh_meta,
+        bvh_leaf_ids=tuple(bvh_rows),
+        kernel_csg_entities=tuple(kernel_csg),
         leaf_fast_static=tuple(leaf_fast),
         type_slices=tuple(type_slices),
         n_leaves=n_leaves,
         n_entities=n_entities,
         simple_leaf_of_entity=tuple(simple_leaf_of_entity),
+        csg_entities=tuple(csg_entities),
         mat_types=mat_types,
         entity_material_static=tuple(entity_material),
         volume_entities=tuple(volume_entities),

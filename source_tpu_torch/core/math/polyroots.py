@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["solve_quartic_components"]
+__all__ = ["solve_quadratic", "solve_quartic", "solve_quartic_components"]
 
 _PI_F32 = 3.14159265358979
+_INF = float("inf")
 
 
 def _safe_sqrt(x, ok=None):
@@ -55,6 +56,15 @@ def _quad_components(a, b, c, eps=1e-30):
     lo = torch.minimum(r0, r1_eff)
     hi = torch.maximum(r0, r1_eff)
     return (lo, v0), (hi, v1)
+
+
+def solve_quadratic(a, b, c, eps=1e-30):
+    """Real roots of a x^2 + b x + c = 0 as (roots[..., 2], valid[..., 2]),
+    ascending where valid, +inf where not (citardauq formulation)."""
+    (lo, v0), (hi, v1) = _quad_components(a, b, c, eps)
+    roots = torch.stack([torch.where(v0, lo, _INF), torch.where(v1, hi, _INF)],
+                        dim=-1)
+    return roots, torch.stack([v0, v1], dim=-1)
 
 
 def _acos_poly(x):
@@ -143,3 +153,13 @@ def solve_quartic_components(a, b, c, d, e, newton_iters=2):
 
     return (finish(lo0, v00), finish(hi0, v01),
             finish(lo1, v10), finish(hi1, v11))
+
+
+def solve_quartic(a, b, c, d, e, newton_iters=2):
+    """Real roots of a x^4 + b x^3 + c x^2 + d x + e = 0 as
+    (roots[..., 4], valid[..., 4]), ascending with invalid lanes +inf: the
+    stacked view of ``solve_quartic_components`` (one float route)."""
+    pairs = solve_quartic_components(a, b, c, d, e, newton_iters)
+    roots = torch.stack([torch.where(v, x, _INF) for x, v in pairs], dim=-1)
+    roots = torch.sort(roots, dim=-1).values
+    return roots, torch.isfinite(roots)

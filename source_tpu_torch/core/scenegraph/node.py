@@ -249,8 +249,8 @@ class Primitive(NodeBase):
     # --- direct geometry queries (primitive.pyx:115-223) ---------------------------
 
     _QUERY_MSG = (
-        "direct geometry queries need the streaming intersection path "
-        "(tracer/intersect.py), which this package does not carry yet"
+        "direct geometry queries (Primitive/World hit, contains, "
+        "next_intersection) are not part of this package yet"
     )
 
     def hit(self, ray):

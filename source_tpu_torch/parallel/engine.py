@@ -2,9 +2,10 @@
 
 Counterpart of the reference's render-engine task farm
 (raysect/core/workflow.py:123-326): the parallel axis is the ray batch, and
-one call traces all of it on one device. ``render_batch`` traces forward;
-with ``differentiable=True`` the returned radiance carries an autograd graph
-to the scene's tensors. ``render_loss_and_grads`` is the differentiable
+one call traces all of it on one device. ``render_batch`` traces forward
+through ``trace_rays`` (the fused route for the scenes it takes, the
+wavefront route for the rest, CSG among them); with ``differentiable=True``
+the returned radiance carries an autograd graph to the scene's tensors. ``render_loss_and_grads`` is the differentiable
 rendering step: an L2 loss against a target and its gradient with respect to
 every float table of the scene. Sharded entry points are not part of this
 package yet.
@@ -29,8 +30,9 @@ def render_batch(scene: CompiledScene, cfg: RayConfig, origin, direction,
     """Trace a ray batch and return the final RayState: the shared device
     entry point. ``origin``/``direction`` are [N, 3] (tensors or arrays) and
     are moved to ``device``, where the scene must already live. ``trace_kw``
-    goes to ``trace_rays``, or with ``differentiable`` to ``trace_rays_diff``
-    (``u_all``, ``shifts``, ``span``)."""
+    goes to ``trace_rays`` (``u_all``, ``shifts``, ``span``, ``route``), or
+    with ``differentiable`` to ``trace_rays_diff`` (``u_all``, ``shifts``,
+    ``span``)."""
     device = resolve_device(device)
     origin = torch.as_tensor(origin, dtype=torch.float32).to(device)
     direction = torch.as_tensor(direction, dtype=torch.float32).to(device)

@@ -1,5 +1,7 @@
 """Geometry primitives (reference raysect/primitive)."""
 
 from .shapes import Sphere, Box, Cylinder, Cone, Parabola, Torus
+from .csg import CSGPrimitive, Union, Intersect, Subtract
 
-__all__ = ["Sphere", "Box", "Cylinder", "Cone", "Parabola", "Torus"]
+__all__ = ["Sphere", "Box", "Cylinder", "Cone", "Parabola", "Torus",
+           "CSGPrimitive", "Union", "Intersect", "Subtract"]

@@ -1,3 +1,3 @@
-from .wavefront import RayConfig, RayState, init_rays, trace_rays
+from .wavefront import RayConfig, RayState, init_rays, trace_rays, trace_step
 
-__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays"]
+__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays", "trace_step"]

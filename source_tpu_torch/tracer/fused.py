@@ -1436,15 +1436,22 @@ def build_library(bins, which="fwd", verbose=False):
     library) and return (library path, compiler log). ``verbose`` adds
     ptxas' register/spill report to the log."""
     unit, headers = _SOURCES[which]
+    return nvcc_build(unit, headers, f"libfused_{which}_b{bins}.so",
+                      (f"-DSRC_BINS={bins}",), verbose)
+
+
+def nvcc_build(unit, headers, name, defines=(), verbose=False):
+    """Compile ``csrc/<unit>`` (which includes ``headers``) with NVCC_FLAGS
+    into ``_build/<name>`` unless the library is newer than every source;
+    returns (library path, compiler log)."""
     src = _CSRC / unit
     _BUILD.mkdir(exist_ok=True)
-    out = _BUILD / f"libfused_{which}_b{bins}.so"
+    out = _BUILD / name
     log = ""
     newest = max(f.stat().st_mtime for f in [src] + [_CSRC / h for h in headers])
     if not out.exists() or out.stat().st_mtime < newest:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-DSRC_BINS={bins}", "-o", str(tmp),
-               str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         proc = subprocess.run(cmd, capture_output=True, text=True)

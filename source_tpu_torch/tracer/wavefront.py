@@ -8,13 +8,23 @@ one-sample MIS (material.pyx:327-352), the dielectric path roulette
 dielectric.pyx:313-328, homogeneous emitters) all preserve the reference's
 exact estimator so images converge to the same answer.
 
-``trace_rays`` and its differentiable counterpart ``trace_rays_diff`` run
-the fused route (tracer/fused.py): every span of bounces goes through the
-hand-written kernels on the card, forward and adjoint, or through their plain
-PyTorch versions for CPU tensors. A scene the fused route does not take
-raises ``NotImplementedError``: the per-stage wavefront route
-(intersect -> volume -> material dispatch as separate tensor programs) is not
-part of this package yet.
+Two routes share the loop over spans and its stream compaction:
+
+  * the fused route (tracer/fused.py): every span of bounces goes through
+    the hand-written bounce kernels on the card, forward and adjoint, or
+    their plain PyTorch versions for CPU tensors. ``trace_rays`` takes it
+    for every scene ``fused.scene_tables`` accepts; ``trace_rays_diff``
+    needs it;
+  * the wavefront route: one ``trace_step`` per bounce, its stages separate
+    tensor programs — ``intersect_scene`` (tracer/intersect.py, with the
+    analytic-BVH kernel on the card), the volume stage and the material
+    dispatch — for the scenes the fused route rejects (CSG above all) and,
+    on request (``route="wavefront"``), for any scene. It rounds the
+    spectral state to its dtype after every bounce, as the reference's
+    ``trace_step`` does; the fused span does not.
+
+Custom BSDFs, the Roughen modifier, Blend/Add mixes, inhomogeneous volumes,
+meshes, and the differentiable wavefront route raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,11 +34,32 @@ from typing import Any
 
 import torch
 
-from ..compiler.scene import CompiledScene
+from ..compiler.scene import CompiledScene, _program_to_closure
+from ..core.math import batch as vmath
+from ..optical.material.base import (
+    MAT_CHECKERBOARD,
+    MAT_CONDUCTOR,
+    MAT_DIELECTRIC,
+    MAT_EMITTER,
+    MAT_EMITTER_ANISO,
+    MAT_LAMBERT,
+    MAT_LIGHT,
+    MAT_NULL,
+    MAT_PERFECT_REFLECT,
+    MAT_ROUGH_CONDUCTOR,
+    VOL_BEER,
+    VOL_HOMOGENEOUS,
+    VOL_INHOMOGENEOUS,
+)
+from ..primitive import analytic as _a
 from . import fused
+from .intersect import HitRecord, intersect_scene
 
-__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays",
+__all__ = ["RayConfig", "RayState", "init_rays", "trace_step", "trace_rays",
            "trace_rays_diff"]
+
+_PI = 3.141592653589793
+_2PI = 2.0 * _PI
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,18 +191,10 @@ def _compact_lanes(st: RayState, divisor: int, lane_ids, radiance_full,
     return sub, lane_ids, radiance_full
 
 
-def _fused_tables(scene, cfg, state, general):
-    tables = fused.scene_tables(scene, cfg, general=general)
-    if tables is None:
-        raise NotImplementedError(
-            "this scene is outside the fused route (it needs all-analytic "
-            "simple entities, built-in materials and Beer/homogeneous "
-            "volumes); the per-stage wavefront route is not part of this "
-            "package yet")
+def _check_device(scene, state):
     if scene.device != state.origin.device:
         raise ValueError(
             f"scene on {scene.device}, rays on {state.origin.device}")
-    return tables
 
 
 def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
@@ -226,7 +249,8 @@ def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
 
 
 def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
-               generator=None, u_all=None, shifts=None, span="multi"):
+               generator=None, u_all=None, shifts=None, span="multi",
+               route="auto"):
     """Trace to termination. Returns the final RayState.
 
     ``generator`` is the ``torch.Generator`` (on the state's device) the
@@ -237,23 +261,41 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
     callable ``shifts(bounces_done, alive_count)`` returning the rotation of
     the compaction stage after that many bounces.
 
-    ``span`` selects the kernel route: ``"multi"`` (one kernel per span) or
-    ``"perbounce"`` (one kernel per bounce).
+    ``route="auto"`` takes the fused route for every scene it accepts and
+    the wavefront route otherwise; ``route="wavefront"`` takes the wavefront
+    route for any scene (the reference's SOURCE_TPU_FUSED=0). On the fused
+    route ``span`` selects the kernel: ``"multi"`` (one kernel per span) or
+    ``"perbounce"`` (one kernel per bounce); the wavefront route runs one
+    ``trace_step`` per bounce and with ``cfg.early_exit`` stops once every
+    lane is dead (one host sync per bounce).
 
     ``cfg.compact_schedule`` applies staged stream compaction: between spans
     the batch partitions alive-first and shrinks, so the long tail of
     surviving paths no longer holds the full batch width hostage.
 
-    The spec, the kernel descriptor and the scene table are kept on the
+    The fused route keeps its spec, kernel descriptor and scene table on the
     scene between calls; the table is packed again when a scene tensor was
     edited or replaced.
     """
-    fspec, entry = _fused_tables(scene, cfg, state, general=False)
-    tab = fused.forward_table(scene, fspec, entry)
+    if route not in ("auto", "wavefront"):
+        raise ValueError(f"route must be 'auto' or 'wavefront', not {route!r}")
+    _check_device(scene, state)
+    tables = fused.scene_tables(scene, cfg) if route == "auto" else None
+    if tables is not None:
+        fspec, entry = tables
+        tab = fused.forward_table(scene, fspec, entry)
 
-    def run_span(st, u):
-        return fused.fused_forward_span(tab, entry["desc"], fspec, st, u,
-                                        span=span, early_exit=cfg.early_exit)
+        def run_span(st, u):
+            return fused.fused_forward_span(tab, entry["desc"], fspec, st, u,
+                                            span=span,
+                                            early_exit=cfg.early_exit)
+    else:
+        def run_span(st, u):
+            for u_k in u:
+                if cfg.early_exit and not bool(st.alive.any()):
+                    break
+                st = trace_step(scene, cfg, st, u_k, differentiable=False)
+            return st
 
     with torch.no_grad():
         return _trace_spans(cfg, state, run_span, generator, u_all, shifts)
@@ -273,12 +315,438 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
     the descriptor are reused. ``generator``, ``u_all``, ``shifts`` and
     ``span`` are those of ``trace_rays``. With ``cfg.compact_schedule`` the
     gathers and scatters between spans are differentiable, and the radiance
-    of compacted-away lanes is already final.
+    of compacted-away lanes is already final. Only the fused route is
+    differentiable so far: any other scene raises ``NotImplementedError``.
     """
-    fspec, entry = _fused_tables(scene, cfg, state, general=True)
+    _check_device(scene, state)
+    tables = fused.scene_tables(scene, cfg, general=True)
+    if tables is None:
+        raise NotImplementedError(
+            "differentiable tracing of a scene outside the fused route (the "
+            "differentiable wavefront route) is not part of this package yet")
+    fspec, entry = tables
     tab = fused.pack_tabvec(scene, fspec)
 
     def run_span(st, u):
         return fused.fused_span(tab, entry["desc"], fspec, st, u, span=span)
 
     return _trace_spans(cfg, state, run_span, generator, u_all, shifts)
+
+
+# --- the wavefront route ---------------------------------------------------------
+
+
+def _check_wavefront(scene: CompiledScene):
+    """Raise on what the wavefront route does not carry yet."""
+    if scene.mesh_entities:
+        raise NotImplementedError(
+            "mesh entities need the mesh intersection kernels, which this "
+            "package does not carry yet")
+    if scene.custom_materials:
+        raise NotImplementedError(
+            "custom DiscreteBSDF/ContinuousBSDF materials are not part of "
+            "the wavefront route yet")
+    if scene.has_roughen:
+        raise NotImplementedError(
+            "the Roughen modifier is not part of the wavefront route yet")
+    if scene.mix_remaps:
+        raise NotImplementedError(
+            "Blend/Add material mixes are not part of the wavefront route yet")
+    if any(v[2] == VOL_INHOMOGENEOUS for v in scene.volume_entities):
+        raise NotImplementedError(
+            "inhomogeneous volumes are not part of the wavefront route yet")
+
+
+# importance sampling (optical/scenegraph/world.pyx:134-253)
+
+
+def _important_cone(scene: CompiledScene, point):
+    """Per-sphere cone geometry from a point: axis[N,I,3], cos_max[N,I]."""
+    to_c = scene.imp_centre[None, :, :] - point[:, None, :]
+    dist2 = vmath.dot(to_c, to_c)
+    dist = torch.sqrt(dist2 + 1e-12)
+    axis = to_c / dist[..., None]
+    r = scene.imp_radius[None, :]
+    inside = dist <= r
+    sin2 = torch.clamp((r / dist) ** 2, 0.0, 1.0)
+    c2 = 1.0 - sin2
+    ok = c2 > 0.0
+    cos_max = torch.where(ok, torch.sqrt(torch.where(ok, c2, 1.0)), 0.0)
+    # origin inside the sphere -> sample the full sphere (cos_max = -1)
+    return axis, torch.where(inside, -1.0, cos_max)
+
+
+def important_direction_sample(scene: CompiledScene, point, u):
+    """Sample a direction toward an important primitive (world.pyx:155-198);
+    ``u`` is [N, 3] uniforms."""
+    axis, cos_max = _important_cone(scene, point)
+    n_imp = scene.imp_cdf.shape[0]
+    idx = torch.clamp(torch.searchsorted(scene.imp_cdf, u[:, 0].contiguous()),
+                      0, n_imp - 1)
+    ax = torch.gather(axis, 1, idx[:, None, None].expand(-1, 1, 3))[:, 0]
+    cm = torch.gather(cos_max, 1, idx[:, None])[:, 0]
+    z = 1.0 - u[:, 1] * (1.0 - cm)
+    r = vmath.safe_sqrt(1.0 - z * z)
+    phi = _2PI * u[:, 2]
+    local = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    return vmath.from_frame(local, *vmath.make_frame(ax))
+
+
+def important_direction_pdf(scene: CompiledScene, point, direction):
+    """Mixture pdf over all important spheres (world.pyx:203-253)."""
+    axis, cos_max = _important_cone(scene, point)
+    c = vmath.dot(axis, direction[:, None, :])
+    solid = 2.0 * _PI * (1.0 - cos_max)
+    pdf_i = torch.where(c >= cos_max, 1.0 / torch.clamp(solid, min=1e-12), 0.0)
+    return torch.sum(scene.imp_weight[None, :] * pdf_i, dim=-1)
+
+
+# material helpers
+
+
+def _conductor_fresnel(ci, n, k):
+    """Spectral Fresnel reflectivity of a conducting interface
+    (conductor.pyx:77-149); ci [N,1] |cos|, n/k [N,B]."""
+    ci2 = ci * ci
+    n2k2 = n * n + k * k
+    two_n_ci = 2.0 * n * ci
+    rs = (n2k2 - two_n_ci + ci2) / torch.clamp(n2k2 + two_n_ci + ci2, min=1e-30)
+    rp = (n2k2 * ci2 - two_n_ci + 1.0) / torch.clamp(
+        n2k2 * ci2 + two_n_ci + 1.0, min=1e-30)
+    return 0.5 * (rs + rp)
+
+
+def _ggx_sample(u1, u2, rough):
+    """A GGX half-vector in the +z frame, alpha = roughness
+    (conductor.pyx:229-236)."""
+    a2 = rough * rough
+    phi = 2.0 * _PI * u2
+    ct2 = torch.clamp((1.0 - u1) / torch.clamp(1.0 + (a2 - 1.0) * u1, min=1e-12),
+                      0.0, 1.0)
+    ct = torch.sqrt(ct2 + 1e-12)
+    st = torch.sqrt(torch.clamp(1.0 - ct2, 1e-12, 1.0))
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
+
+
+def _ggx_d(ct_h, rough):
+    """GGX normal distribution, alpha = roughness (conductor.pyx:288-296)."""
+    a2 = rough * rough
+    d = ct_h * ct_h * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp(_PI * d * d, min=1e-12)
+
+
+def _smith_g1(ct, rough):
+    """Smith G1, alpha = roughness (conductor.pyx:302-306)."""
+    a2 = rough * rough
+    return 2.0 * ct / torch.clamp(ct + torch.sqrt(a2 + (1.0 - a2) * ct * ct),
+                                  min=1e-12)
+
+
+def _hemisphere_cosine(u1, u2):
+    z = vmath.safe_sqrt(u1)
+    r = vmath.safe_sqrt(1.0 - u1)
+    phi = _2PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def _surface_interaction(scene: CompiledScene, cfg: RayConfig,
+                         state: RayState, rec: HitRecord, u):
+    """Every built-in material's surface response for the batch:
+    (new_origin, new_direction, throughput_mul[N,B], emission[N,B],
+    continues[N], counts_depth[N])."""
+    N = state.origin.shape[0]
+    B = state.throughput.shape[1]
+    dtype = state.origin.dtype
+    dev = state.origin.device
+
+    mat_id = vmath.select_rows(scene.entity_material,
+                               torch.clamp(rec.entity, min=0))
+    mat_types = vmath.select_rows(
+        torch.as_tensor(scene.mat_types, dtype=torch.int32, device=dev), mat_id)
+    # the built-in dispatch reads spectral slots 0-1 only
+    spectra = vmath.select_rows(scene.mat_spectra[:, :2], mat_id)
+    params = vmath.select_rows(scene.mat_params, mat_id)
+    scalars = vmath.select_rows(scene.mat_scalars, mat_id)
+
+    d = state.direction
+    n = rec.normal
+    cos_in = -vmath.dot(d, n)  # > 0 when hitting the front face
+    # shading normal faces the incident ray (ContinuousBSDF normal flip)
+    n_sh = torch.where(cos_in[:, None] >= 0.0, n, -n)
+    abs_cos_in = torch.abs(cos_in)
+    t_f, b_f, n_f = vmath.make_frame(n_sh)
+
+    # reflection/transmission launch origins relative to the incident side
+    front = cos_in >= 0.0
+    refl_origin = torch.where(front[:, None], rec.outside_point,
+                              rec.inside_point)
+    trans_origin = torch.where(front[:, None], rec.inside_point,
+                               rec.outside_point)
+
+    new_origin = refl_origin
+    new_direction = d
+    thr_mul = torch.zeros((N, B), dtype=dtype, device=dev)
+    emission = torch.zeros((N, B), dtype=dtype, device=dev)
+    continues = torch.zeros(N, dtype=torch.bool, device=dev)
+    counts_depth = torch.ones(N, dtype=torch.bool, device=dev)
+    present = set(scene.mat_types)
+    use_mis = cfg.importance_sampling and scene.has_importance
+    w_imp = cfg.important_path_weight
+
+    if MAT_EMITTER in present:
+        m = mat_types == MAT_EMITTER
+        emission = torch.where(m[:, None], spectra[:, 0, :], emission)
+    if MAT_EMITTER_ANISO in present:
+        m = mat_types == MAT_EMITTER_ANISO
+        factor = torch.clamp(torch.abs(cos_in), min=1e-9) ** params[:, 0]
+        emission = torch.where(m[:, None], spectra[:, 0, :] * factor[:, None],
+                               emission)
+    if MAT_CHECKERBOARD in present:
+        m = mat_types == MAT_CHECKERBOARD
+        width = torch.clamp(params[:, 0], min=1e-12)
+        # checker parity in the ENTITY's local space (checkerboard.pyx:39)
+        w2l = vmath.select_rows(scene.entity_w2l, torch.clamp(rec.entity, min=0))
+        p_loc = vmath.transform_point(w2l, rec.point)
+        cells = torch.floor(p_loc / width[:, None]).to(torch.int32)
+        parity = (cells[:, 0] + cells[:, 1] + cells[:, 2]) % 2 == 0
+        emis = torch.where(parity[:, None], spectra[:, 0, :], spectra[:, 1, :])
+        emission = torch.where(m[:, None], emis, emission)
+    if MAT_LIGHT in present:  # debug Light (debug.pyx:41)
+        m = mat_types == MAT_LIGHT
+        fac = torch.clamp(-vmath.dot(params[:, 0:3], n_sh), min=0.0)
+        emission = torch.where(m[:, None], spectra[:, 0, :] * fac[:, None],
+                               emission)
+    if MAT_PERFECT_REFLECT in present:  # debug mirror (debug.pyx:82)
+        m = mat_types == MAT_PERFECT_REFLECT
+        thr_mul = torch.where(m[:, None], 1.0, thr_mul)
+        new_direction = torch.where(m[:, None], vmath.reflect(d, n_sh),
+                                    new_direction)
+        new_origin = torch.where(m[:, None], refl_origin, new_origin)
+        continues = continues | m
+    if MAT_NULL in present:  # pass through, depth exempt (material.pyx:118-160)
+        m = mat_types == MAT_NULL
+        continues = continues | m
+        counts_depth = torch.where(m, False, counts_depth)
+        new_origin = torch.where(m[:, None], trans_origin, new_origin)
+        thr_mul = torch.where(m[:, None], 1.0, thr_mul)
+    if MAT_LAMBERT in present:  # one-sample MIS (lambert.pyx:92-106)
+        m = mat_types == MAT_LAMBERT
+        dir_bsdf = vmath.from_frame(_hemisphere_cosine(u[:, 1], u[:, 2]),
+                                    t_f, b_f, n_f)
+        if use_mis:
+            pick_light = u[:, 0] < w_imp
+            dir_light = important_direction_sample(scene, rec.point, u[:, 3:6])
+            out_dir = torch.where(pick_light[:, None], dir_light, dir_bsdf)
+            pdf_light = important_direction_pdf(scene, rec.point, out_dir)
+            cos_out = vmath.dot(out_dir, n_sh)
+            pdf_bsdf = torch.clamp(cos_out, min=0.0) / _PI
+            pdf = w_imp * pdf_light + (1.0 - w_imp) * pdf_bsdf
+        else:
+            out_dir = dir_bsdf
+            cos_out = vmath.dot(out_dir, n_sh)
+            pdf_bsdf = torch.clamp(cos_out, min=0.0) / _PI
+            pdf = pdf_bsdf
+        ok = m & (pdf > 1e-9) & (cos_out > 0.0)
+        w_l = torch.where(ok, pdf_bsdf / torch.clamp(pdf, min=1e-12), 0.0)
+        thr_mul = torch.where(m[:, None], spectra[:, 0, :] * w_l[:, None],
+                              thr_mul)
+        new_direction = torch.where(m[:, None], out_dir, new_direction)
+        new_origin = torch.where(m[:, None], refl_origin, new_origin)
+        continues = continues | ok
+    if MAT_CONDUCTOR in present:  # mirror + spectral Fresnel
+        m = mat_types == MAT_CONDUCTOR
+        f = _conductor_fresnel(abs_cos_in[:, None], spectra[:, 0, :],
+                               spectra[:, 1, :])
+        thr_mul = torch.where(m[:, None], f, thr_mul)
+        new_direction = torch.where(m[:, None], vmath.reflect(d, n_sh),
+                                    new_direction)
+        new_origin = torch.where(m[:, None], refl_origin, new_origin)
+        continues = continues | m
+    if MAT_ROUGH_CONDUCTOR in present:  # GGX + Smith + Fresnel, one-sample MIS
+        m = mat_types == MAT_ROUGH_CONDUCTOR
+        rough = torch.clamp(params[:, 0], 1e-3, 1.0)
+        h_bsdf = vmath.from_frame(_ggx_sample(u[:, 1], u[:, 2], rough),
+                                  t_f, b_f, n_f)
+        wi = -d
+        wo_bsdf = vmath.reflect(d, h_bsdf)
+        if use_mis:
+            pick_light = u[:, 0] < w_imp
+            dir_light = important_direction_sample(scene, rec.point, u[:, 3:6])
+            wo = torch.where(pick_light[:, None], dir_light, wo_bsdf)
+        else:
+            wo = wo_bsdf
+        h_raw = wi + wo
+        h_len = torch.sqrt(torch.clamp(vmath.dot(h_raw, h_raw), min=1e-24))
+        h = h_raw / h_len[:, None]
+        ct_i = torch.clamp(vmath.dot(wi, n_sh), min=1e-6)
+        ct_o = vmath.dot(wo, n_sh)
+        ct_h = vmath.dot(h, n_sh)
+        o_dot_h = vmath.dot(wo, h)
+        d_ggx = _ggx_d(ct_h, rough)
+        pdf_bsdf = 0.25 * d_ggx * torch.abs(
+            ct_h / torch.where(torch.abs(o_dot_h) > 1e-9, o_dot_h, 1e-9))
+        if use_mis:
+            pdf_light = important_direction_pdf(scene, rec.point, wo)
+            pdf = w_imp * pdf_light + (1.0 - w_imp) * pdf_bsdf
+        else:
+            pdf = pdf_bsdf
+        ok = m & (ct_o > 1e-6) & (pdf > 1e-9)
+        f = _conductor_fresnel(torch.abs(o_dot_h)[:, None], spectra[:, 0, :],
+                               spectra[:, 1, :])
+        g = _smith_g1(ct_i, rough) * _smith_g1(torch.clamp(ct_o, min=1e-6),
+                                               rough)
+        w_spec = torch.where(
+            ok, d_ggx * g / (4.0 * ct_i * torch.clamp(pdf, min=1e-12)), 0.0)
+        thr_mul = torch.where(m[:, None], f * w_spec[:, None], thr_mul)
+        new_direction = torch.where(m[:, None], wo, new_direction)
+        new_origin = torch.where(m[:, None], refl_origin, new_origin)
+        continues = continues | ok
+    if MAT_DIELECTRIC in present:  # Snell + Fresnel path roulette
+        m = mat_types == MAT_DIELECTRIC
+        # indices sanitised on other lanes (their scalars are zero)
+        n_int = torch.where(m, torch.clamp(scalars[:, 0], min=1e-3), 1.5)
+        n_ext = torch.where(m, torch.clamp(scalars[:, 1], min=1e-3), 1.0)
+        transmission_only = params[:, 0] > 0.5
+        c1 = cos_in  # n is the true outward normal: c1 > 0 entering
+        entering = c1 >= 0.0
+        n1 = torch.where(entering, n_ext, n_int)
+        n2 = torch.where(entering, n_int, n_ext)
+        gamma = n1 / n2
+        c2s = 1.0 - gamma * gamma * (1.0 - c1 * c1)
+        tir = c2s <= 0.0
+        sq = torch.where(~tir, torch.sqrt(torch.where(~tir, c2s, 1.0)), 0.0)
+        temp_t = torch.where(entering, gamma * c1 - sq, gamma * c1 + sq)
+        trans_dir = vmath.normalise(gamma[:, None] * d + temp_t[:, None] * n)
+        refl_dir = vmath.reflect(d, n)
+        c2 = -vmath.dot(n, trans_dir)
+        den1 = n1 * c1 + n2 * c2
+        den2 = n1 * c2 + n2 * c1
+        r1 = (n1 * c1 - n2 * c2) / torch.where(torch.abs(den1) > 1e-12, den1,
+                                               1e-12)
+        r2 = (n1 * c2 - n2 * c1) / torch.where(torch.abs(den2) > 1e-12, den2,
+                                               1e-12)
+        reflectivity = 0.5 * (r1 * r1 + r2 * r2)
+        transmit = transmission_only | (u[:, 0] < (1.0 - reflectivity))
+        transmit = torch.where(tir, False, transmit)
+        dead_tir = tir & transmission_only
+        out_dir = torch.where(transmit[:, None], trans_dir, refl_dir)
+        origin_sel = torch.where(transmit[:, None], trans_origin, refl_origin)
+        ok = m & ~dead_tir
+        thr_mul = torch.where(m[:, None], torch.where(ok[:, None], 1.0, 0.0),
+                              thr_mul)
+        new_direction = torch.where(m[:, None], out_dir, new_direction)
+        new_origin = torch.where(m[:, None], origin_sel, new_origin)
+        continues = continues | ok
+    # absorbers fall through: continues stays False, thr_mul 0
+    return new_origin, new_direction, thr_mul, emission, continues, counts_depth
+
+
+def _static_leaf_type(scene: CompiledScene, g):
+    """Analytic type of a STATIC leaf index from the type slices."""
+    for type_id, start, stop in scene.type_slices:
+        if start <= g < stop:
+            return type_id
+    raise IndexError(f"leaf {g} outside type slices")
+
+
+def _leaf_inside(scene, g, point):
+    p_loc = vmath.transform_point(scene.leaf_w2l[g][None], point)
+    return _a.CONTAINS_FNS[_static_leaf_type(scene, g)](
+        p_loc, scene.leaf_params[g][None])
+
+
+def _entity_inside(scene: CompiledScene, e, point):
+    """Containment of ONE entity at point[N,3], testing only its own
+    leaves."""
+    for ce, leaf_ids, program in scene.csg_entities:
+        if ce == e:
+            cols = [_leaf_inside(scene, g, point) for g in leaf_ids]
+            return _program_to_closure(program)(torch.stack(cols, dim=-1))
+    g = scene.simple_leaf_of_entity[e]
+    if g >= 0:
+        return _leaf_inside(scene, g, point)
+    return torch.zeros(point.shape[:-1], dtype=torch.bool, device=point.device)
+
+
+def _volume_interaction(scene: CompiledScene, state: RayState,
+                        rec: HitRecord):
+    """Volume responses along the traversed segment (optical/ray.pyx:
+    422-455), containment tested at the segment midpoint: Beer-Lambert
+    attenuation (dielectric.pyx:313-328) and homogeneous emission. Returns
+    (throughput, emission)."""
+    if not scene.volume_entities:
+        return state.throughput, torch.zeros_like(state.radiance)
+    t_seg = torch.where(rec.hit, rec.t, 0.0)
+    midpoint = state.origin + 0.5 * t_seg[:, None] * state.direction
+    throughput = state.throughput
+    emission = torch.zeros_like(state.radiance)
+    for e, mat_idx, kind, _obj, _leaf, _slot, _iv in scene.volume_entities:
+        m = _entity_inside(scene, e, midpoint) & rec.hit
+        spec = scene.mat_spectra[mat_idx]
+        if kind == VOL_BEER:
+            base = spec[1][None, :]
+            ok = base > 1e-9
+            att = torch.where(ok, torch.where(ok, base, 1.0) ** t_seg[:, None],
+                              0.0)
+            throughput = torch.where(m[:, None], throughput * att, throughput)
+        elif kind == VOL_HOMOGENEOUS:
+            emission = emission + torch.where(
+                m[:, None], spec[0][None, :] * t_seg[:, None], 0.0)
+    return throughput, emission
+
+
+def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, u,
+               differentiable=True):
+    """One wavefront bounce (the reference's ``trace_step``): roulette,
+    ``intersect_scene``, the volume stage, the surface stage. ``u`` is this
+    bounce's [N, n_uniforms] draws. ``differentiable=False`` lets the
+    intersection consume the BVH kernel's whole winner record. Returns the
+    next RayState, its spectral state rounded to the state's dtype."""
+    _check_wavefront(scene)
+    # Russian roulette (optical/ray.pyx:380-388)
+    roulette_active = state.alive & (state.depth >= cfg.extinction_min_depth)
+    killed = roulette_active & (u[:, 6] < cfg.extinction_prob)
+    survive_scale = torch.where(roulette_active & ~killed,
+                                1.0 / (1.0 - cfg.extinction_prob), 1.0)
+    alive = state.alive & ~killed & (state.depth < cfg.max_depth)
+    throughput = state.throughput * survive_scale[:, None]
+
+    # dead lanes park far outside every bounding volume: they fail the BVH's
+    # root slab test at once, and every update below is gated on
+    # ``alive & rec.hit``
+    park = torch.full((1, 3), 3.0e7, dtype=state.origin.dtype,
+                      device=state.origin.device)
+    origin_q = torch.where(alive[:, None], state.origin, park)
+    rec = intersect_scene(scene, origin_q, state.direction,
+                          need_grad=differentiable)
+    if cfg.max_distance != float("inf"):
+        # hits beyond the ray's terminating distance are misses
+        rec = dataclasses.replace(rec, hit=rec.hit & (rec.t <= cfg.max_distance))
+
+    # volume emission is weighted by the segment-start throughput;
+    # Beer-Lambert attenuation applies to what arrives from beyond
+    thr_start = throughput
+    throughput, vol_emission = _volume_interaction(
+        scene, dataclasses.replace(state, throughput=throughput, alive=alive),
+        rec)
+    radiance = state.radiance + torch.where(alive[:, None],
+                                            thr_start * vol_emission, 0.0)
+
+    new_origin, new_dir, thr_mul, emission, continues, counts_depth = (
+        _surface_interaction(scene, cfg, state, rec, u))
+    active = alive & rec.hit
+    radiance = radiance + torch.where(active[:, None], throughput * emission,
+                                      0.0)
+    throughput = torch.where(active[:, None], throughput * thr_mul, throughput)
+    alive_next = active & continues & (torch.amax(throughput, dim=-1) > 0.0)
+    sdt = state.throughput.dtype
+    return RayState(
+        origin=torch.where(active[:, None], new_origin, state.origin),
+        direction=torch.where(active[:, None], new_dir, state.direction),
+        throughput=throughput.to(sdt),
+        radiance=radiance.to(sdt),
+        alive=alive_next,
+        depth=state.depth + (active & counts_depth).to(state.depth.dtype),
+        segments=state.segments + torch.sum(alive, dtype=torch.int32),
+        overflow=state.overflow,
+    )

@@ -65,6 +65,8 @@ def jax_zoo():
 def carry_scene(js, device="cpu"):
     """A JAX CompiledScene as the port's, through ``scene_from_numpy``."""
     arrays = {k: np.asarray(getattr(js, k)) for k in ARRAY_FIELDS}
+    if js.leaf_bvh is not None:
+        arrays["leaf_bvh"] = {k: np.asarray(v) for k, v in js.leaf_bvh.items()}
     static = {k: getattr(js, k) for k in STATIC_FIELDS}
     static["volume_entities"] = tuple(
         r[:3] + (None,) + r[4:] for r in js.volume_entities)

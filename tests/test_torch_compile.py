@@ -143,7 +143,12 @@ def test_spec_descriptor_layout(pairs):
 
 
 def test_unported_parts_raise():
-    """What the port does not cover yet says so instead of going wrong."""
+    """What the port does not cover yet says so instead of going wrong. CSG
+    compiles and traces (the wavefront route); custom BSDFs, Roughen,
+    Blend/Add mixes, inhomogeneous volumes, meshes and the differentiable
+    wavefront route raise, each naming what is missing."""
+    import dataclasses
+    from source_tpu_torch.optical.material.base import VOL_INHOMOGENEOUS
     world = scenes.furnace()
     with pytest.raises(NotImplementedError):
         world.hit(None)
@@ -163,11 +168,10 @@ def test_unported_parts_raise():
     scene = T.compile_scene(w, T.SpectralConfig(*SPECTRAL), device="cpu")
     o = np.zeros((4, 3), np.float32)
     d = np.tile(np.asarray([[0, 0, 1]], np.float32), (4, 1))
-    with pytest.raises(NotImplementedError, match="fused route"):
+    with pytest.raises(NotImplementedError, match="custom DiscreteBSDF"):
         T.render_batch(scene, T.RayConfig(), o, d, device="cpu")
-    # the differentiable tracer takes the same scene class, and a scene
-    # inside it traces
-    with pytest.raises(NotImplementedError, match="fused route"):
+    # the differentiable tracer takes the fused route only
+    with pytest.raises(NotImplementedError, match="differentiable wavefront"):
         T.render_batch(scene, T.RayConfig(), o, d, differentiable=True,
                        device="cpu")
     ok = T.compile_scene(scenes.furnace(), T.SpectralConfig(*SPECTRAL),
@@ -175,6 +179,29 @@ def test_unported_parts_raise():
     st = T.render_batch(ok, T.RayConfig(max_iters=2), o, d, differentiable=True,
                         device="cpu")
     assert torch.equal(st.radiance, torch.ones(4, B))
+    # the wavefront route refuses what it does not carry yet
+    for change, match in (
+            (dict(has_roughen=True), "Roughen"),
+            (dict(mix_remaps=((0, 0, 0, 1.0),)), "Blend/Add"),
+            (dict(volume_entities=((0, 0, VOL_INHOMOGENEOUS, None, 0, -1, 4),)),
+             "inhomogeneous volumes")):
+        with pytest.raises(NotImplementedError, match=match):
+            T.render_batch(dataclasses.replace(ok, **change), T.RayConfig(), o,
+                           d, device="cpu")
+    mesh_world = T.World()
+    Sphere(1.0, parent=mesh_world, material=Lambert()).is_mesh = True
+    with pytest.raises(NotImplementedError, match="mesh"):
+        T.compile_scene(mesh_world, T.SpectralConfig(*SPECTRAL), device="cpu")
+    # CSG now compiles, and traces on the wavefront route
+    from source_tpu_torch.primitive import Intersect
+    csg = T.World()
+    Intersect(Sphere(1.0), Sphere(1.0, transform=T.translate(0.5, 0, 0)),
+              parent=csg, material=Lambert())
+    cs = T.compile_scene(csg, T.SpectralConfig(*SPECTRAL), device="cpu")
+    assert len(cs.csg_entities) == 1 and cs.simple_leaf_of_entity == (-1,)
+    st = T.render_batch(cs, T.RayConfig(max_iters=2), o, d, device="cpu")
+    # from inside the lens every ray scatters off its inner wall twice
+    assert bool(torch.isfinite(st.radiance).all()) and int(st.segments) == 8
     assert Lambert().MAT_TYPE == 1
 
 
