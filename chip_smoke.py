@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from source_tpu_torch/csrc/ (into
-source_tpu_torch/_build/): the fused bounce kernels, forward and adjoint, and
-the analytic-BVH nearest-hit kernel. Holds each against its plain PyTorch
-version on the card, runs the furnace check, and drives the main paths: on
+source_tpu_torch/_build/): the fused bounce kernels, forward and adjoint, the
+analytic-BVH nearest-hit kernel and the mesh nearest-hit kernel. Holds each
+against its plain PyTorch version on the card, runs the furnace checks
+(analytic and watertight mesh), and drives the main paths: on
 the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24
 iterations, forward through ``compile_scene`` -> ``render_batch`` and the
 training step through ``render_loss_and_grads``, each once through the
 whole-span kernels and once through the per-bounce kernels; and the CSG demo
 (demos/csg.py) at 512x512 rays, 15 bins, max_depth 24, 32 iterations, with
-compaction, through ``render_batch`` on the wavefront route. Every phase
-prints one JSON line; any failure exits non-zero. Without a CUDA device the
-script exits 2 and prints no result. ``--phases bvh_kernels,wavefront`` runs a
-subset while developing (the last line is then not a pass).
+compaction, through ``render_batch`` on the wavefront route; the mesh demo
+(demos/mesh_render.py) at 512x384 rays, 12 bins, max_depth 12, 16
+iterations, with compaction, on the wavefront route, and a world holding a
+1.31M-triangle icosphere. Every phase prints one JSON line; any failure exits
+non-zero. Without a CUDA device the script exits 2 and prints no result.
+``--phases bvh_kernels,wavefront`` runs a subset while developing (the last
+line is then not a pass).
 """
 
 import argparse
@@ -62,6 +66,20 @@ N_FIELD = 262144
 NODE_OPS = 26
 ITEM_OPS = {0: 110, 1: 110, 2: 120, 3: 130, 4: 130, 5: 330, 6: 40, 7: 50}
 CSG_CHILD_OPS = 150  # per child: transform, interval, endpoint masks, program
+# the mesh demo as benchmarks/suite.py::bench_mesh traces it (camera defaults
+# as for the CSG demo) at the demo's own camera, 512x384
+MESH = dict(bins=12, max_depth=12, max_iters=16, extinction_prob=0.01,
+            compact_schedule=((2, 8), (3, 4)))
+N_ICO5 = 262144     # rays of the icosphere(5) case
+N_BIG = 131072      # rays of benchmarks/bigmesh.py
+# f32 operations of the mesh kernel, counted from tracer/watertight.py and
+# the slab test (add, sub, mul, reciprocal, abs, min/max, compare): per ray
+# (three safe reciprocals and the Woop setup), per visited node (slab test),
+# per tested triangle (Woop test and the update)
+MESH_RAY_OPS = 24
+MESH_NODE_OPS = 26
+MESH_TRI_OPS = 110
+MESH_RTOL, MESH_ATOL = 1e-6, 1e-7  # t, u, v on lanes with the same triangle
 
 
 def emit(phase, **kw):
@@ -309,12 +327,15 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
 
 def phase_env(fused, bvh):
     t0 = time.time()
+    from source_tpu_torch.tracer import mesh_bvh
     jobs = [(b, which) for which in ("fwd", "bwd") for b in (FLAGSHIP["bins"], 5)]
-    jobs.append((None, "bvh"))
+    jobs += [(None, "bvh"), (None, "mesh")]
 
     def build(job):
         if job[1] == "bvh":
             return bvh.build_library(verbose=True)[1]
+        if job[1] == "mesh":
+            return mesh_bvh.build_library(verbose=True)[1]
         return fused.build_library(job[0], job[1], verbose=True)[1]
 
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -335,7 +356,8 @@ def phase_env(fused, bvh):
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
          nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
-         ptxas_bwd_b15=ptxas(logs[2]), ptxas_bvh=ptxas(logs[4]))
+         ptxas_bwd_b15=ptxas(logs[2]), ptxas_bvh=ptxas(logs[4]),
+         ptxas_mesh=ptxas(logs[5]), libraries=len(jobs))
 
 
 def phase_kernels(T, fused, scenes):
@@ -660,15 +682,15 @@ def phase_furnace(T, scenes):
 
 
 KERNELS = ("fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
-           "fused_span_bwd", "analytic_bvh_winner")
+           "fused_span_bwd", "analytic_bvh_winner", "mesh_bvh_winner")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def wrappers(fused):
     """Each kernel's wrapper, which counts its launches."""
-    from source_tpu_torch.tracer import analytic_bvh
-    return {k: getattr(analytic_bvh if k == "analytic_bvh_winner" else fused, k)
-            for k in KERNELS}
+    from source_tpu_torch.tracer import analytic_bvh, mesh_bvh
+    home = dict(analytic_bvh_winner=analytic_bvh, mesh_bvh_winner=mesh_bvh)
+    return {k: getattr(home.get(k, fused), k) for k in KERNELS}
 
 
 def reset_counts(fused):
@@ -1109,22 +1131,30 @@ def phase_bvh_kernels(T, bvh, scenes):
 
 class StageClock:
     """Host milliseconds, synchronised on both sides, spent in the wrapped
-    functions of one instrumented run."""
+    functions of one instrumented run: ``ms[stage]`` in all, and
+    ``within[(outer, stage)]`` the part spent inside another wrapped stage."""
 
     def __init__(self):
         self.ms = {}
+        self.within = {}
         self.undo = []
+        self.open = []
 
     def wrap(self, module, name, stage):
         real = getattr(module, name)
 
         def timed(*a, **kw):
             torch.cuda.synchronize()
+            outer = self.open[-1] if self.open else None
+            self.open.append(stage)
             t0 = time.perf_counter()
             out = real(*a, **kw)
             torch.cuda.synchronize()
-            self.ms[stage] = self.ms.get(stage, 0.0) + (
-                time.perf_counter() - t0) * 1e3
+            dt = (time.perf_counter() - t0) * 1e3
+            self.open.pop()
+            self.ms[stage] = self.ms.get(stage, 0.0) + dt
+            key = (outer, stage)
+            self.within[key] = self.within.get(key, 0.0) + dt
             return out
 
         setattr(module, name, timed)
@@ -1262,8 +1292,418 @@ def phase_wavefront(T, fused, scenes):
     return launches
 
 
+def median_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` calls, each between its
+    own pair of CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def once_ms(fn):
+    """Milliseconds of one call of ``fn()`` by CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def mesh_local(mesh, o, d):
+    """World rays in a mesh's local frame, the direction not renormalised
+    (as intersect_scene hands them to the mesh kernel)."""
+    from source_tpu_torch.core.math import batch as vmath
+    return (vmath.transform_point(mesh.w2l[None], o).contiguous(),
+            vmath.transform_vector(mesh.w2l[None], d).contiguous())
+
+
+def tie_ulps(mesh, o, d, eps, lanes, tri_a, tri_b):
+    """On ``lanes``, how many ulp apart the plain Woop test puts the t of two
+    candidate triangles (a huge number where either is not a hit)."""
+    from source_tpu_torch.tracer.watertight import woop_setup, woop_tri_test
+    s = woop_setup(*o[lanes].unbind(1), *d[lanes].unbind(1))
+    bits = []
+    for tri in (tri_a, tri_b):
+        abc = mesh.triangles.long()[tri.clamp(min=0).long()]
+        vs = [mesh.vertices[abc[:, j], k] for j in range(3) for k in range(3)]
+        t, _, _, _, valid = woop_tri_test(s, *vs, eps[lanes])
+        t = torch.where(valid & (tri >= 0), t, float("inf"))
+        bits.append(t.view(torch.int32).long())
+    return (bits[0] - bits[1]).abs()
+
+
+def mesh_parity(name, mesh, o, d, eps, mb, mt):
+    """The mesh kernel (through its wrapper) against its plain version on the
+    card: the lanes that choose another triangle (allowed only where the two
+    candidates' t are equal to 1 ulp: a tie the strict t < t_best breaks by
+    order), the largest deviations of t, u, v on the lanes that agree
+    (MESH_RTOL / MESH_ATOL), front equal. Returns (result, kernel output,
+    plain output)."""
+    N = o.shape[0]
+    k = mb.mesh_bvh_winner(mesh, o, d, eps)
+    torch.cuda.synchronize()
+    p = mt.mesh_intersect_plain(mesh, o, d, eps)
+    same = k["tri"] == p["tri"]
+    lanes = torch.nonzero(~same).squeeze(1)
+    tied = 0
+    if lanes.numel():
+        ulps = tie_ulps(mesh, o, d, eps, lanes, k["tri"][lanes], p["tri"][lanes])
+        tied = int((ulps <= 1).sum())
+    hit = same & (p["tri"] >= 0)
+    res = dict(case=name, n=N, triangles=mesh.n_triangles, n_nodes=mesh.n_nodes,
+               hit=float((p["tri"] >= 0).float().mean()),
+               tri_differs=int(lanes.numel()), tri_differs_tied=tied,
+               tri_differs_share=float(lanes.numel()) / N,
+               front_equal=bool((k["front"] == p["front"])[same].all()))
+    ok = res["front_equal"] and tied == lanes.numel()
+    for key in ("t", "u", "v"):
+        dev = (k[key] - p[key]).abs()[hit]
+        lim = MESH_ATOL + MESH_RTOL * p[key][hit].abs()
+        res[f"max_abs_d{key}"] = float(dev.max()) if dev.numel() else 0.0
+        ok &= bool((dev <= lim).all())
+    if not ok or not bool(torch.isfinite(k["u"]).all()):
+        fail(f"{name} mesh_bvh_winner: kernel against plain version {res}")
+    return res, k, p
+
+
+def mesh_case(name, mesh, o, d, eps, mb, mt, orders=False):
+    """mesh_parity, then the kernel's time by CUDA events (median), the
+    wrapper's, the plain version's, visits per ray and the bound; with
+    ``orders`` also the kernel on the rays in coherence order
+    (``_coherence_order`` on the mesh's root box) and the sort itself.
+
+    The bound's bytes are the rays in and the records out, and of the tables
+    only the records this run's rays read (the plain walk marks them): the
+    nodes visited, the triangles tested and those triangles' vertices."""
+    from source_tpu_torch.tracer.analytic_bvh import _coherence_order
+    res, _, p = mesh_parity(name, mesh, o, d, eps, mb, mt)
+    N = o.shape[0]
+    res["ms"] = median_ms(lambda: mb._launch(mesh, o, d, eps), 20)
+    res["wrapper_ms"] = median_ms(lambda: mb.mesh_bvh_winner(mesh, o, d, eps), 20)
+    if orders:
+        def order():
+            return _coherence_order(o, d, mesh.node_lo[0], mesh.node_hi[0])
+        sort = order()
+        o_s, d_s, e_s = o[sort], d[sort], eps[sort]
+        res["sorted_ms"] = median_ms(lambda: mb._launch(mesh, o_s, d_s, e_s), 20)
+        res["sort_ms"] = median_ms(order, 20)
+    res["plain_ms"] = once_ms(lambda: mt.mesh_intersect_plain(mesh, o, d, eps))
+    nv, tv = p["nodes_visited"].float(), p["tris_tested"].float()
+    nodes = int(p["nodes_touched"].sum())
+    tris = mesh.triangles[p["tris_touched"]]
+    verts = int(torch.unique(tris).numel())
+    # node: lo, hi (6 f32), skip, first, count (3 i32); triangle: 3 i32
+    # vertex ids; vertex: 3 f32
+    table_words = 9 * nodes + 3 * tris.shape[0] + 3 * verts
+    nbytes = 4 * N * (7 + 5) + 4 * table_words
+    ops = (MESH_RAY_OPS * N + MESH_NODE_OPS * int(nv.sum())
+           + MESH_TRI_OPS * int(tv.sum()))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    res.update(
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops,
+        records_read=dict(nodes=nodes, triangles=int(tris.shape[0]),
+                          vertices=verts),
+        nodes_per_ray=dict(mean=float(nv.mean()),
+                           p99=float(torch.quantile(nv, 0.99))),
+        tris_per_ray=dict(mean=float(tv.mean()),
+                          p99=float(torch.quantile(tv, 0.99))))
+    return res
+
+
+def mesh_setup(T, scenes, world=None, width=None, height=None,
+               bins=MESH["bins"]):
+    """A mesh world (the demo unless given), the demo's ray configuration
+    and the demo camera's rays (512x384 unless given)."""
+    scene = T.compile_scene(scenes.mesh_world() if world is None else world,
+                            T.SpectralConfig(375.0, 740.0, bins))
+    cfg = T.RayConfig(
+        max_depth=MESH["max_depth"], extinction_prob=MESH["extinction_prob"],
+        extinction_min_depth=3, importance_sampling=True,
+        important_path_weight=0.25, max_iters=MESH["max_iters"],
+        compact_schedule=MESH["compact_schedule"], spectral_dtype="float32")
+    cam = dict(scenes.MESH_CAMERA)
+    if width is not None:
+        cam.update(width=width, height=height)
+    o, d = scenes.camera_rays(**cam)
+    return scene, cfg, torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
+
+
+def ball_rays(n, radius, rng):
+    """``n`` rays from points uniform in a ball, directions uniform."""
+    p = rng.normal(size=(n, 3))
+    p *= (radius * rng.uniform(size=(n, 1)) ** (1.0 / 3.0)
+          / np.linalg.norm(p, axis=1, keepdims=True))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return p.astype(np.float32), d.astype(np.float32)
+
+
+def phase_mesh_kernels(T, scenes):
+    from source_tpu_torch.accel import bvh as accel_bvh
+    from source_tpu_torch.primitive import MeshData
+    from source_tpu_torch.tracer import mesh_bvh as mb
+    from source_tpu_torch.tracer import meshtrace as mt
+    from source_tpu_torch.tracer.wavefront import trace_step
+    eye = np.eye(4)
+    scene, cfg, o, d = mesh_setup(T, scenes)
+    eps = min_advance(o)
+    rows = {}
+    # (a) the demo's camera rays against each mesh, in its local frame
+    for slot, name in enumerate(("icosphere", "knot")):
+        mesh = scene.meshes[slot]
+        ol, dl = mesh_local(mesh, o, d)
+        rows[f"camera_{name}"] = mesh_case(f"camera_{name}", mesh, ol, dl, eps,
+                                           mb, mt)
+    # (b) the live rays of the third traced bounce, dead lanes parked as
+    # trace_step parks them
+    st = T.init_rays(o, d, MESH["bins"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for _ in range(2):
+            u = torch.rand((o.shape[0], 10), generator=gen, device="cuda")
+            st = trace_step(scene, cfg, st, u, differentiable=False)
+    park = torch.full((1, 3), 3.0e7, device="cuda")
+    o2 = torch.where(st.alive[:, None], st.origin, park).contiguous()
+    eps2 = min_advance(o2)
+    for slot, name in enumerate(("icosphere", "knot")):
+        mesh = scene.meshes[slot]
+        ol, dl = mesh_local(mesh, o2, st.direction)
+        rows[f"bounce2_{name}"] = mesh_case(f"bounce2_{name}", mesh, ol, dl,
+                                            eps2, mb, mt)
+        rows[f"bounce2_{name}"]["alive"] = int(st.alive.sum())
+    # (c) icosphere(5): half the rays from inside, half scattered from outside
+    rng = np.random.RandomState(21)
+    ico5 = MeshData(*scenes.icosphere(5, 1.0), smoothing=True,
+                    closed=True).to_tables(eye, eye, device="cuda")
+    oi, di = ball_rays(N_ICO5 // 2, 0.9, rng)
+    oo = rng.normal(size=(N_ICO5 // 2, 3))
+    oo *= rng.uniform(1.5, 3.0, (N_ICO5 // 2, 1)) / np.linalg.norm(
+        oo, axis=1, keepdims=True)
+    do = ball_rays(N_ICO5 // 2, 1.2, rng)[0] - oo
+    do /= np.linalg.norm(do, axis=1, keepdims=True)
+    oc = torch.as_tensor(np.concatenate([oi, oo]), dtype=torch.float32).cuda()
+    dc = torch.as_tensor(np.concatenate([di, do]), dtype=torch.float32).cuda()
+    rows["icosphere5"] = mesh_case("icosphere5", ico5, oc, dc,
+                                   min_advance(oc), mb, mt)
+    # (d) the 1.31M-triangle icosphere of benchmarks/bigmesh.py, its rays
+    # from (0, 0, -3) over a +-0.6 cone, sorted and unsorted
+    t0 = time.perf_counter()
+    big_data = MeshData(*scenes.icosphere(8, 1.0), smoothing=True, closed=True)
+    build_s = time.perf_counter() - t0
+    if accel_bvh._LIB is None:
+        fail("mesh_kernels: the BVH was built by the numpy fallback, not "
+             "csrc/bvh.cpp")
+    big = big_data.to_tables(eye, eye, device="cuda")
+    u = np.random.RandomState(0).uniform(size=(N_BIG, 2))
+    db = np.stack([(u[:, 0] - 0.5) * 1.2, (u[:, 1] - 0.5) * 1.2,
+                   np.ones(N_BIG)], axis=-1)
+    db = torch.as_tensor(db / np.linalg.norm(db, axis=1, keepdims=True),
+                         dtype=torch.float32).cuda()
+    ob = torch.tensor([[0.0, 0.0, -3.0]], device="cuda").expand(N_BIG, 3)
+    ob = ob.contiguous()
+    rows["big"] = mesh_case("icosphere8", big, ob, db,
+                            torch.zeros(N_BIG, device="cuda"), mb, mt,
+                            orders=True)
+    rows["big"]["bvh_build_s"] = build_s
+    # (e) rays aimed at shared edges and vertices: no leak in either version
+    leaks = {}
+    for name, v, f, oe, de in scenes.watertight_cases():
+        mesh = MeshData(v, f, smoothing=False, closed=True).to_tables(
+            eye, eye, device="cuda")
+        oe, de = torch.as_tensor(oe).cuda(), torch.as_tensor(de).cuda()
+        res, k, p = mesh_parity(name, mesh, oe, de,
+                                torch.zeros(oe.shape[0], device="cuda"), mb, mt)
+        leaks[name] = dict(rays=oe.shape[0],
+                           kernel=int((k["tri"] < 0).sum()),
+                           plain=int((p["tri"] < 0).sum()),
+                           tri_differs=res["tri_differs"])
+        if leaks[name]["kernel"] or leaks[name]["plain"]:
+            fail(f"mesh_kernels: rays aimed at edges and vertices leak: {leaks}")
+    emit("mesh_kernels", tolerance=dict(rtol=MESH_RTOL, atol=MESH_ATOL,
+                                        tie_ulps=1),
+         mesh_bvh_winner=list(rows.values()),
+         watertight=leaks)
+    return rows
+
+
+def phase_mesh_furnace(T, scenes):
+    """Rays from inside a closed icosphere(5) that emits 1 W/m2/str/nm, on
+    the wavefront route: every ray must return exactly 1.0 in every bin; a
+    ray that leaks through the mesh returns 0."""
+    from source_tpu_torch.optical.material import UnitySurfaceEmitter
+    from source_tpu_torch.primitive import Mesh
+    world = T.World()
+    Mesh(*scenes.icosphere(5, 1.0), smoothing=True, closed=True, parent=world,
+         material=UnitySurfaceEmitter())
+    scene = T.compile_scene(world, T.SpectralConfig(375.0, 740.0, 15))
+    n = 65536
+    o, d = ball_rays(n, 0.5, np.random.RandomState(2))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st = T.render_batch(scene, T.RayConfig(max_iters=4), o, d, gen)
+    exact = bool((st.radiance == 1.0).all())
+    emit("mesh_furnace", rays=n, triangles=scene.meshes[0].n_triangles,
+         exact=exact, segments=int(st.segments),
+         min=float(st.radiance.min()), max=float(st.radiance.max()))
+    if not exact or int(st.segments) != n:
+        fail("mesh_furnace: radiance is not exactly 1.0 in every bin")
+
+
+def phase_mesh(T, fused, scenes):
+    from source_tpu_torch.tracer import intersect as I
+    from source_tpu_torch.tracer import meshtrace as M
+    from source_tpu_torch.tracer import wavefront as W
+    scene, cfg, o, d = mesh_setup(T, scenes)
+    n, bins = o.shape[0], MESH["bins"]
+    if fused.scene_tables(scene, cfg) is not None:
+        fail("mesh: the mesh demo should be outside the fused route")
+    # per traced bounce: one launch per mesh in intersect_scene, and one
+    # containment probe per closed mesh whose material is a volume (the
+    # N-BK7 icosphere is a Beer-Lambert volume: _volume_interaction asks at
+    # every bounce whether the segment's midpoint lies inside it)
+    probes = sum(1 for v in scene.volume_entities
+                 if v[5] >= 0 and scene.meshes[v[5]].closed)
+    per_bounce = len(scene.meshes) + probes
+
+    calls = [0]
+    real_step = W.trace_step
+
+    def counting_step(*a, **kw):
+        calls[0] += 1
+        return real_step(*a, **kw)
+
+    W.trace_step = counting_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        st = T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        launches = read_counts(fused)
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        W.trace_step = real_step
+    want = dict(NO_LAUNCHES, analytic_bvh_winner=calls[0],
+                mesh_bvh_winner=per_bounce * calls[0])
+    if launches != want or not 1 <= calls[0] <= cfg.max_iters:
+        fail(f"mesh: want per traced bounce ({calls[0]}) one "
+             f"analytic_bvh_winner and {per_bounce} mesh_bvh_winner launches "
+             f"and nothing else: {launches}")
+    rad = st.radiance
+    if tuple(rad.shape) != (n, bins) or not bool(torch.isfinite(rad).all()):
+        fail("mesh: radiance has the wrong shape or is not finite")
+    if not float(rad.mean()) > 0.0:
+        fail("mesh: no radiance reached the camera")
+
+    walls, segs = [], 0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        segs = int(run.segments)
+    wall = float(np.median(walls[1:]))
+
+    # one instrumented run: where the wall time goes, stage by stage
+    steps = StageClock()
+    for module, name, stage in (
+            (I, "analytic_bvh_winner", "bvh_kernel"),
+            (M, "_nearest", "mesh_kernel"),
+            (W, "intersect_scene", "intersect"),
+            (W, "_volume_interaction", "volume"),
+            (W, "_surface_interaction", "surface"),
+            (W, "_compact_lanes", "compaction")):
+        steps.wrap(module, name, stage)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        inst_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        steps.restore()
+    w = steps.within
+    mesh_in_isect = w.get(("intersect", "mesh_kernel"), 0.0)
+    probe = w.get(("volume", "mesh_kernel"), 0.0)
+    stage = dict(
+        mesh_kernel=mesh_in_isect, bvh_kernel=steps.ms.get("bvh_kernel", 0.0),
+        intersect_rest=(steps.ms["intersect"] - mesh_in_isect
+                        - steps.ms.get("bvh_kernel", 0.0)),
+        surface=steps.ms["surface"], volume_probe_kernel=probe,
+        volume_rest=steps.ms["volume"] - probe,
+        compaction=steps.ms.get("compaction", 0.0))
+    stage["other"] = inst_ms - sum(stage.values())
+
+    # MIS on against off: the floor and the wall sample the emitting box, so
+    # the two estimators differ lane by lane; their means must agree
+    runs = {}
+    for mis in (True, False):
+        c = dataclasses.replace(cfg, importance_sampling=mis)
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        runs[mis] = T.render_batch(scene, c, o[::4].contiguous(),
+                                   d[::4].contiguous(), gen).radiance.t()
+    diff, se, mis_ok = mean_within(runs[True], runs[False], n_sigma=4.0)
+    if not mis_ok:
+        fail(f"mesh: MIS on/off means differ by {diff} (standard error {se})")
+    lit = {k: float((v.sum(0) > 0).float().mean()) for k, v in runs.items()}
+
+    # the big-mesh world: compile (BVH of 1.31M triangles) and one render
+    # of 256x256 rays
+    t0 = time.perf_counter()
+    bscene, bcfg, ob, db = mesh_setup(T, scenes, world=scenes.big_mesh_world(),
+                                      width=256, height=256, bins=5)
+    compile_s = time.perf_counter() - t0
+    reset_counts(fused)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = T.render_batch(bscene, bcfg, ob, db, gen)
+    torch.cuda.synchronize()
+    big_wall = time.perf_counter() - t0
+    big_launches = read_counts(fused)
+    if (big_launches["mesh_bvh_winner"] == 0
+            or not bool(torch.isfinite(bst.radiance).all())
+            or not float(bst.radiance.mean()) > 0.0):
+        fail(f"mesh: the big-mesh world did not render: {big_launches}")
+
+    emit("mesh", rays=n, bins=bins, max_depth=cfg.max_depth,
+         max_iters=cfg.max_iters, compact_schedule=cfg.compact_schedule,
+         traced_bounces=calls[0], launches=launches,
+         mesh_launches_per_bounce=dict(intersect=len(scene.meshes),
+                                       containment_probes=probes),
+         segments=int(st.segments), overflow=int(st.overflow),
+         mean_radiance_per_bin=[round(float(x), 5) for x in rad.mean(0)],
+         wall_ms=wall * 1e3, walls_ms=[x * 1e3 for x in walls[1:]],
+         segments_per_s=segs / wall, instrumented_wall_ms=inst_ms,
+         stages_ms=stage, peak_bytes=peak,
+         mis_mean_diff=diff, mis_standard_error=se, mis_lit_share=lit,
+         big_mesh=dict(triangles=bscene.meshes[0].n_triangles,
+                       rays=ob.shape[0], bins=5, compile_s=compile_s,
+                       wall_ms=big_wall * 1e3, launches=big_launches,
+                       segments=int(bst.segments),
+                       mean_radiance=float(bst.radiance.mean())))
+    return dict(launches=launches, big_launches=big_launches)
+
+
 def kernels_line(cornell, grad, launches, step_launches, bvh_row,
-                 wave_launches):
+                 wave_launches, mesh_rows, mesh_launches):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -1295,6 +1735,23 @@ def kernels_line(cornell, grad, launches, step_launches, bvh_row,
         max_abs_err=bvh_row["max_abs"], ms=bvh_row["ms"],
         plain_ms=bvh_row["plain_ms"], bound_ms=bvh_row["bound_ms"],
         bound_by=bvh_row["bound_by"], library_ms=None))
+    # the mesh kernel: at the demo camera's rays on its torus knot, with the
+    # launches of the mesh demo's render_batch (K7's size), and on the
+    # 1.31M-triangle icosphere with the launches of the big-mesh world's
+    # render_batch (K8's size)
+    for name, row, line, count in (
+            ("mesh_bvh_winner", mesh_rows["camera_knot"], 192,
+             mesh_launches["launches"]),
+            ("mesh_bvh_winner (1.31M triangles)", mesh_rows["big"], 369,
+             mesh_launches["big_launches"])):
+        rows.append(dict(
+            name=name, route="cuda", source=src + "mesh_bvh.cu",
+            replaces=f"source_tpu/tracer/pallas_mesh.py:{line}",
+            launches=count["mesh_bvh_winner"],
+            max_abs_err=max(row["max_abs_dt"], row["max_abs_du"],
+                            row["max_abs_dv"]),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
     return {"kernels": rows}
 
 
@@ -1302,7 +1759,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,kernels,furnace,main,grad_kernels,step,"
-                            "bvh_kernels,wavefront")
+                            "bvh_kernels,wavefront,mesh_kernels,mesh_furnace,"
+                            "mesh")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1312,7 +1770,10 @@ def main():
     from source_tpu_torch.tracer import analytic_bvh, fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
     cornell = grad = launches = step_launches = bvh_row = wave = None
+    mesh_rows = mesh_launches = None
+    mesh_furnace = False
     if "env" in phases:
         phase_env(fused, analytic_bvh)
     if "kernels" in phases:
@@ -1329,12 +1790,22 @@ def main():
         bvh_row = phase_bvh_kernels(T, analytic_bvh, scenes)
     if "wavefront" in phases:
         wave = phase_wavefront(T, fused, scenes)
-    if None in (cornell, grad, launches, step_launches, bvh_row, wave):
+    if "mesh_kernels" in phases:
+        mesh_rows = phase_mesh_kernels(T, scenes)
+    if "mesh_furnace" in phases:
+        phase_mesh_furnace(T, scenes)
+        mesh_furnace = True
+    if "mesh" in phases:
+        mesh_launches = phase_mesh(T, fused, scenes)
+    emit("total", seconds=time.perf_counter() - t_start)
+    if None in (cornell, grad, launches, step_launches, bvh_row, wave,
+                mesh_rows, mesh_launches) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
-                                  bvh_row, wave)), flush=True)
+                                  bvh_row, wave, mesh_rows, mesh_launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

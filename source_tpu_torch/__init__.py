@@ -5,15 +5,15 @@ NVIDIA Hopper: the scenegraph compiles to flat SoA device tensors and path
 tracing runs as a wavefront. It keeps the directory layout and names of
 ``source_tpu`` so a reader finds each counterpart.
 
-Covered so far: analytic scenes with built-in materials, Beer-Lambert and
-homogeneous volumes. Forward, ``compile_scene`` -> ``render_batch``/
-``trace_rays`` takes the fused route (one bounce kernel) for simple-entity
-scenes and the wavefront route (``trace_step``: the analytic-BVH kernel, then
-the volume and surface stages as tensor programs) for the rest, CSG among
-them. Differentiable, ``render_loss_and_grads`` -> ``trace_rays_diff``
+Covered so far: analytic scenes and triangle meshes with built-in
+materials, Beer-Lambert and homogeneous volumes. Forward, ``compile_scene``
+-> ``render_batch``/``trace_rays`` takes the fused route (one bounce kernel)
+for simple-entity scenes and the wavefront route (``trace_step``: the
+analytic-BVH and mesh kernels, then the volume and surface stages as tensor
+programs) for the rest, CSG and meshes among them. Differentiable, ``render_loss_and_grads`` -> ``trace_rays_diff``
 returns the gradient of an L2 loss with respect to every float table of a
 scene the fused route takes. Entry points take ``device=`` and default to
-``"cuda"``; they raise if no card is there. Meshes, custom BSDFs, modifiers,
+``"cuda"``; they raise if no card is there. Custom BSDFs, modifiers,
 inhomogeneous volumes and the differentiable wavefront route raise
 ``NotImplementedError``.
 """

@@ -6,7 +6,10 @@ package, after ``np.asarray`` on its side), so both packages can trace the
 same scene — including scenes whose host classes this package does not
 carry yet. The packed analytic-BVH tables come across too (``arrays`` key
 ``"leaf_bvh"``: a dict of the "nodes", "leaves" and "csg" arrays, or None),
-so both packages intersect through the same tree.
+so both packages intersect through the same tree. So do the meshes
+(``arrays`` key ``"meshes"``: one dict per mesh of the MESH_ARRAYS as numpy
+arrays and the MESH_STATIC as plain values); the JAX package's TPU packing
+of a mesh is not carried.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import numpy as np
 import torch
 
 from .compiler.scene import CompiledScene, resolve_device
+from .tracer.meshtrace import MeshTables
 
-__all__ = ["scene_from_numpy", "ARRAY_FIELDS", "STATIC_FIELDS", "BVH_TABLES"]
+__all__ = ["scene_from_numpy", "ARRAY_FIELDS", "STATIC_FIELDS", "BVH_TABLES",
+           "MESH_ARRAYS", "MESH_STATIC"]
 
 ARRAY_FIELDS = (
     "leaf_w2l", "leaf_l2w", "leaf_params", "leaf_entity", "entity_material",
@@ -32,12 +37,18 @@ STATIC_FIELDS = (
     "bvh_leaf_ids", "kernel_csg_entities",
 )
 BVH_TABLES = ("nodes", "leaves", "csg")
+MESH_ARRAYS = ("vertices", "triangles", "face_normals", "vertex_normals",
+               "node_lo", "node_hi", "node_skip", "node_first", "node_count",
+               "w2l", "l2w")
+_MESH_INT = ("triangles", "node_skip", "node_first", "node_count")
+MESH_STATIC = ("n_nodes", "max_leaf", "smoothing", "closed")
 
 
 def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
     """CompiledScene from ``arrays`` (name -> numpy array, ARRAY_FIELDS) and
     ``static`` (name -> plain Python value, STATIC_FIELDS), and the BVH
-    tables under ``arrays["leaf_bvh"]`` when the scene has them. Rows of
+    tables under ``arrays["leaf_bvh"]`` and the meshes under
+    ``arrays["meshes"]`` when the scene has them. Rows of
     ``volume_entities`` carry ``None`` in place of the material object."""
     device = resolve_device(device)
     missing = [k for k in ARRAY_FIELDS if k not in arrays]
@@ -57,8 +68,15 @@ def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
         bvh = {k: torch.as_tensor(np.array(bvh[k]), dtype=torch.float32)
                .to(device) for k in BVH_TABLES}
 
+    meshes = tuple(MeshTables(
+        **{k: torch.as_tensor(
+            np.array(m[k]),
+            dtype=torch.int32 if k in _MESH_INT else torch.float32).to(device)
+           for k in MESH_ARRAYS},
+        **{k: m[k] for k in MESH_STATIC}) for m in arrays.get("meshes", ()))
+
     def frozen(v):
         return tuple(frozen(x) for x in v) if isinstance(v, (list, tuple)) else v
 
-    return CompiledScene(**tensors, leaf_bvh=bvh,
+    return CompiledScene(**tensors, leaf_bvh=bvh, meshes=meshes,
                          **{k: frozen(static[k]) for k in STATIC_FIELDS})

@@ -25,8 +25,12 @@ kernel descriptor from it.
     entities, built under the reference's own conditions, so both packages
     take the same route for the same scene.
 
-Scene class of this package so far: analytic entities, simple and CSG. Mesh
-entities raise ``NotImplementedError``.
+  * per mesh instance, its ``MeshTables`` (tracer/meshtrace.py): geometry
+    and threaded BVH in the mesh's local frame, with the instance's
+    world<->local transforms.
+
+Scene class of this package so far: analytic entities, simple and CSG, and
+triangle meshes.
 """
 
 from __future__ import annotations
@@ -107,7 +111,8 @@ class CompiledScene:
     imp_cdf: Any  # f32[I]
     # spectral grid: bin-centre wavelengths (nm)
     wavelengths: Any = None  # f32[B]
-    # triangle meshes: always empty until the mesh path is part of this package
+    # triangle meshes: one MeshTables per mesh entity (mesh_entities maps
+    # entity -> slot)
     meshes: Any = ()
     # packed analytic-leaf BVH tables (tracer/analytic_bvh.py): dict of f32
     # tensors "nodes", "leaves", "csg", or None below LEAF_BVH_MIN_LEAVES
@@ -250,13 +255,15 @@ def compile_scene(world: World, spectral: SpectralConfig,
     entities = []  # primitive objects
     programs = []  # postfix programs with global leaf indices
     leaf_entity = []
+    mesh_prims = []  # (entity_id, Mesh primitive)
 
     for prim in world.primitives:
         entity_id = len(entities)
         if getattr(prim, "is_mesh", False):
-            raise NotImplementedError(
-                "mesh entities need the mesh intersection path, which this "
-                "package does not carry yet")
+            entities.append(prim)
+            programs.append(None)
+            mesh_prims.append((entity_id, prim))
+            continue
         leaf_base = len(leaf_records)
         leaves = prim.csg_leaves(prim.to_root())
         program = prim.csg_program(leaf_base)
@@ -277,7 +284,9 @@ def compile_scene(world: World, spectral: SpectralConfig,
     remap = {old: new for new, old in enumerate(order)}
     leaf_records = [leaf_records[i] for i in order]
     leaf_entity = [leaf_entity[i] for i in order]
-    programs = [[(op, remap[arg] if op == OP_LEAF else arg) for op, arg in prog]
+    programs = [None if prog is None
+                else [(op, remap[arg] if op == OP_LEAF else arg)
+                      for op, arg in prog]
                 for prog in programs]
 
     type_slices = []
@@ -287,16 +296,25 @@ def compile_scene(world: World, spectral: SpectralConfig,
         type_slices.append((t, start, start + count))
         start += count
 
-    l2w = np.stack([r[1].to_array(np.float64) for r in leaf_records])
-    w2l = np.stack([r[1].inverse().to_array(np.float64) for r in leaf_records])
-    params = np.stack([np.asarray(r[2], dtype=np.float64) for r in leaf_records])
+    if n_leaves:
+        l2w = np.stack([r[1].to_array(np.float64) for r in leaf_records])
+        w2l = np.stack([r[1].inverse().to_array(np.float64)
+                        for r in leaf_records])
+        params = np.stack([np.asarray(r[2], dtype=np.float64)
+                           for r in leaf_records])
+    else:
+        l2w = np.zeros((0, 4, 4))
+        w2l = np.zeros((0, 4, 4))
+        params = np.zeros((0, _a.PARAM_BLOCK))
 
     # simple entities map to their leaf; CSG entities keep their program over
     # local (gathered) leaf positions, with the global leaf ids beside it
     simple_leaf_of_entity = []
     csg_entities = []  # (entity_id, global leaf ids, local program)
     for e, prog in enumerate(programs):
-        if len(prog) == 1 and prog[0][0] == OP_LEAF:
+        if prog is None:  # mesh entity
+            simple_leaf_of_entity.append(-1)
+        elif len(prog) == 1 and prog[0][0] == OP_LEAF:
             simple_leaf_of_entity.append(prog[0][1])
         else:
             simple_leaf_of_entity.append(-1)
@@ -383,6 +401,7 @@ def compile_scene(world: World, spectral: SpectralConfig,
     # reference's step rule (emitter/inhomogeneous.pyx:135-139) evaluated at
     # the compile-time chord bound — the entity's bounding-sphere diameter
     volume_entities = []
+    mesh_slot_of_entity = {e: slot for slot, (e, _) in enumerate(mesh_prims)}
     for e, prim in enumerate(entities):
         mat = materials[entity_material[e]]
         if mat.VOLUME_KIND != VOL_NONE:
@@ -400,8 +419,19 @@ def compile_scene(world: World, spectral: SpectralConfig,
                 ))
             volume_entities.append((
                 e, entity_material[e], mat.VOLUME_KIND, mat,
-                simple_leaf_of_entity[e], -1, intervals,
+                simple_leaf_of_entity[e], mesh_slot_of_entity.get(e, -1),
+                intervals,
             ))
+
+    # --- meshes (shared MeshData -> per-instance MeshTables) -----------------------
+    mesh_tables = []
+    mesh_entities = []
+    for slot, (e, prim) in enumerate(mesh_prims):
+        m = prim.to_root()
+        mesh_tables.append(prim.data.to_tables(
+            m.inverse().to_array(np.float64), m.to_array(np.float64),
+            dtype=dtype, device=device))
+        mesh_entities.append((e, slot))
 
     # --- importance manager (optical/scenegraph/world.pyx:88-129) ------------------
     imp_centre = []
@@ -449,6 +479,7 @@ def compile_scene(world: World, spectral: SpectralConfig,
         wavelengths=ten(
             spectral.min_wavelength
             + (np.arange(B) + 0.5) * spectral.delta_wavelength),
+        meshes=tuple(mesh_tables),
         leaf_bvh=(None if leaf_bvh is None else
                   {k: ten(v) for k, v in leaf_bvh.items()}),
         leaf_bvh_meta=leaf_bvh_meta,
@@ -463,6 +494,7 @@ def compile_scene(world: World, spectral: SpectralConfig,
         mat_types=mat_types,
         entity_material_static=tuple(entity_material),
         volume_entities=tuple(volume_entities),
+        mesh_entities=tuple(mesh_entities),
         mix_remaps=tuple(mix_remaps),
         custom_materials=custom_materials,
         has_roughen=bool(

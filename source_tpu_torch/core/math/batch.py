@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "dot",
+    "cross",
     "normalise",
     "select_rows",
     "transform_point",
@@ -50,6 +51,13 @@ def select_rows(table, idx):
 def dot(a, b):
     """Batched 3-vector dot product: [...,3] x [...,3] -> [...]."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    """Batched 3-vector cross product (``jnp.cross``'s terms)."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
 def normalise(v, eps=1e-24):

@@ -4,7 +4,7 @@ Counterpart of the reference's render-engine task farm
 (raysect/core/workflow.py:123-326): the parallel axis is the ray batch, and
 one call traces all of it on one device. ``render_batch`` traces forward
 through ``trace_rays`` (the fused route for the scenes it takes, the
-wavefront route for the rest, CSG among them); with ``differentiable=True``
+wavefront route for the rest, CSG and meshes among them); with ``differentiable=True``
 the returned radiance carries an autograd graph to the scene's tensors. ``render_loss_and_grads`` is the differentiable
 rendering step: an L2 loss against a target and its gradient with respect to
 every float table of the scene. Sharded entry points are not part of this

@@ -1,0 +1,6 @@
+"""Triangle meshes: geometry, BVH and the primitive node."""
+
+from .data import MeshData
+from .mesh import Mesh
+
+__all__ = ["Mesh", "MeshData"]

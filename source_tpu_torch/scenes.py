@@ -7,7 +7,11 @@ and all six solids; ``furnace`` is the exact-answer check: inside a unit
 emitter every ray returns radiance 1 in every bin. ``csg_world`` is the CSG
 demo of the reference's suite (demos/csg.py), the wavefront route's main
 scene; ``leaf_field`` is a deep analytic-BVH input: every record kind of
-the BVH kernel in a tree of some 130 nodes.
+the BVH kernel in a tree of some 130 nodes. ``mesh_world`` is the mesh demo
+of the reference's suite (demos/mesh_render.py): a dispersive-glass
+icosphere and a rough-metal torus knot over Lambert walls under an emitting
+box; ``big_mesh_world`` puts the 1.31M-triangle icosphere of
+benchmarks/bigmesh.py in place of the glass icosphere.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from .core.scenegraph import Node, World
 from .optical import InterpolatedSF
 from .optical import ConstantSF
 from .optical.library import d65_white, schott
+from .primitive import Mesh
 from .optical.material import (
     AbsorbingSurface, AnisotropicSurfaceEmitter, Checkerboard, Conductor,
     Lambert, NullSurface, PerfectReflectingSurface, RoughConductor,
@@ -29,6 +34,8 @@ from .primitive import (
 )
 
 __all__ = ["cornell_box", "zoo", "furnace", "csg_world", "leaf_field",
+           "icosphere", "torus_knot", "mesh_world", "big_mesh_world",
+           "cube_mesh", "blob_mesh", "watertight_cases", "MESH_CAMERA",
            "pinhole_rays", "camera_rays", "scatter_rays", "field_rays"]
 
 
@@ -252,9 +259,10 @@ def leaf_field(n_simple=256, n_lens=8, seed=0):
     return w
 
 
-def camera_rays(width, height, fov, position):
-    """Rays of a pinhole camera at ``position`` (x, y, z) looking along +z
-    through the pixel centres, ``fov`` degrees across the wider side
+def camera_rays(width, height, fov, position, rotation=(0.0, 0.0, 0.0)):
+    """Rays of a pinhole camera at ``position`` (x, y, z), turned by
+    ``rotate(*rotation)`` (yaw, pitch, roll in degrees) from looking along
+    +z, through the pixel centres, ``fov`` degrees across the wider side
     (reference pinhole.pyx:148-200 without the pixel jitter): (origin,
     direction) as f32[width*height, 3] numpy arrays."""
     delta = 2.0 * np.tan(np.pi / 180.0 * 0.5 * fov) / max(width, height)
@@ -263,9 +271,205 @@ def camera_rays(width, height, fov, position):
     y = 0.5 * height * delta - delta * (py.ravel() + 0.5)
     d = np.stack([x, y, np.ones_like(x)], axis=-1)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = d @ rotate(*rotation).to_array(np.float64)[:3, :3].T
     o = np.empty(d.shape, np.float32)
     o[:] = np.asarray(position, np.float32)
     return o, d.astype(np.float32)
+
+
+def icosphere(subdivisions=3, radius=1.0):
+    """Subdivided icosahedron: vertices f32[V,3], triangles i32[T,3]. The
+    mesh of the reference's demos/mesh_render.py (and of
+    tests/test_mesh_paging.py): every pass splits each face into four at its
+    edge midpoints, a new vertex numbered at its edge's first appearance in
+    face order, (a, b), (b, c), (c, a) per face; built here one pass at a
+    time over all edges at once."""
+    verts, faces = _icosphere64(subdivisions)
+    return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def _icosphere64(subdivisions):
+    """The unit icosphere in float64: vertices [V,3], triangles i64[T,3]."""
+    g = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, g, 0], [1, g, 0], [-1, -g, 0], [1, -g, 0],
+        [0, -1, g], [0, 1, g], [0, -1, -g], [0, 1, -g],
+        [g, 0, -1], [g, 0, 1], [-g, 0, -1], [-g, 0, 1],
+    ], np.float64)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    for _ in range(subdivisions):
+        nv = len(verts)
+        a, b, c = faces.T
+        edges = np.stack([np.stack([a, b], 1), np.stack([b, c], 1),
+                          np.stack([c, a], 1)], axis=1).reshape(-1, 2)
+        key = edges.min(axis=1) * nv + edges.max(axis=1)
+        _, first, inverse = np.unique(key, return_index=True,
+                                      return_inverse=True)
+        by_first = np.argsort(first, kind="stable")
+        rank = np.empty_like(by_first)
+        rank[by_first] = np.arange(len(by_first))
+        ends = edges[first[by_first]]
+        mid = verts[ends[:, 0]] + verts[ends[:, 1]]
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        ab, bc, ca = (nv + rank[inverse.reshape(-1)]).reshape(-1, 3).T
+        faces = np.stack([np.stack([a, ab, ca], 1), np.stack([b, bc, ab], 1),
+                          np.stack([c, ca, bc], 1), np.stack([ab, bc, ca], 1)],
+                         axis=1).reshape(-1, 3)
+        verts = np.concatenate([verts, mid])
+    return verts, faces
+
+
+def torus_knot(p=2, q=3, tube=0.25, scale=0.6, segments=160, sides=12):
+    """Tube swept along a (p, q) torus knot (the reference's
+    demos/mesh_render.py): vertices f32[V,3], triangles i32[T,3]."""
+    t = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    r = 2.0 + np.cos(q * t)
+    centre = np.stack(
+        [r * np.cos(p * t), r * np.sin(p * t), -np.sin(q * t)], axis=1
+    ) * scale
+    # frames along the curve
+    tangent = np.roll(centre, -1, axis=0) - np.roll(centre, 1, axis=0)
+    tangent /= np.linalg.norm(tangent, axis=1, keepdims=True)
+    normal = np.cross(tangent, np.array([0.0, 0.0, 1.0]))
+    bad = np.linalg.norm(normal, axis=1) < 1e-6
+    normal[bad] = np.cross(tangent[bad], [1.0, 0.0, 0.0])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    binormal = np.cross(tangent, normal)
+
+    phi = np.linspace(0, 2 * np.pi, sides, endpoint=False)
+    ring = (np.cos(phi)[:, None, None] * normal[None] +
+            np.sin(phi)[:, None, None] * binormal[None])  # [sides, seg, 3]
+    verts = (centre[None] + tube * scale * ring).transpose(1, 0, 2).reshape(-1, 3)
+
+    tris = []
+    for i in range(segments):
+        for j in range(sides):
+            a = i * sides + j
+            b = i * sides + (j + 1) % sides
+            c = ((i + 1) % segments) * sides + j
+            d = ((i + 1) % segments) * sides + (j + 1) % sides
+            tris += [[a, c, b], [b, c, d]]
+    return verts.astype(np.float32), np.asarray(tris, np.int32)
+
+
+# the mesh demo's camera (demos/mesh_render.py): fov 50 across 512x384,
+# translate(0, 1.4, -3.6) * rotate(0, -8, 0)
+MESH_CAMERA = dict(width=512, height=384, fov=50.0, position=(0.0, 1.4, -3.6),
+                   rotation=(0.0, -8.0, 0.0))
+
+
+def mesh_world(small=False, sphere=None):
+    """The mesh demo (reference demos/mesh_render.py ``build_world``): an
+    N-BK7 icosphere (3 subdivisions, 1 280 triangles; 2 when ``small``)
+    and a rough-conductor torus knot (160 x 12 segments, 3 840 triangles;
+    64 x 8 when ``small``), both smoothed and closed, a Lambert floor and
+    back wall and an emitting box above. ``sphere`` replaces the icosphere's
+    (vertices, triangles)."""
+    world = World()
+    v, f = icosphere(2 if small else 3, radius=0.8) if sphere is None else sphere
+    Mesh(v, f, smoothing=True, closed=True, parent=world,
+         transform=translate(-1.1, 0.8, 0.0), material=schott("N-BK7"))
+    v2, f2 = torus_knot(segments=64 if small else 160, sides=8 if small else 12)
+    Mesh(v2, f2, smoothing=True, closed=True, parent=world,
+         transform=translate(1.2, 0.9, 0.3) * rotate(0, 70, 0),
+         material=RoughConductor(ConstantSF(0.9), ConstantSF(6.0), 0.2))
+    Box(Point3D(-10, -0.1, -10), Point3D(10, 0, 10), parent=world,
+        material=Lambert(ConstantSF(0.6)))
+    Box(Point3D(-10, 0, 4), Point3D(10, 6, 4.1), parent=world,
+        material=Lambert(ConstantSF(0.3)))
+    Box(Point3D(-1.5, 3.0, -1.5), Point3D(1.5, 3.2, 1.5), parent=world,
+        material=UniformSurfaceEmitter(d65_white, 4.0))
+    return world
+
+
+def big_mesh_world():
+    """The mesh demo with the icosphere of benchmarks/bigmesh.py (8
+    subdivisions, 1 310 720 triangles) as its glass sphere, at the demo's
+    radius 0.8 so it rests where the demo's does."""
+    return mesh_world(sphere=icosphere(8, radius=0.8))
+
+
+def cube_mesh():
+    """The closed cube [-1, 1]^3 as 12 triangles, shared edges everywhere
+    (tests/test_mesh_watertight.py): vertices f32[8,3], triangles i32[12,3]."""
+    v = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                 dtype=np.float32)
+    # index: bit2 = x, bit1 = y, bit0 = z; outward winding
+    f = np.array([
+        [0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],  # x = -1, x = +1
+        [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],  # y = -1, y = +1
+        [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3],  # z = -1, z = +1
+    ], dtype=np.int32)
+    return v, f
+
+
+def blob_mesh(subdivisions=3, seed=11):
+    """A closed displaced icosphere with irregular, sliver-prone triangles
+    at every orientation (tests/test_mesh_watertight.py): vertices
+    f32[V,3], triangles i32[T,3]."""
+    verts, faces = _icosphere64(subdivisions)
+    rng = np.random.RandomState(seed)
+    amps = rng.uniform(-1, 1, (6, 4))
+    r = 1.0
+    for k in range(6):
+        r = r + 0.12 * amps[k, 0] * np.sin(
+            (k + 1) * verts[:, 0] + amps[k, 1]) * np.cos(
+            (k + 2) * verts[:, 1] + amps[k, 2]) * np.sin(
+            (k + 1) * verts[:, 2] + amps[k, 3])
+    return (verts * r[:, None]).astype(np.float32), faces.astype(np.int32)
+
+
+def watertight_cases():
+    """Rays aimed exactly at shared edges and vertices of closed meshes, the
+    patterns of tests/test_mesh_watertight.py: (name, vertices, triangles,
+    origins f32[N,3], unit directions f32[N,3]) per case. "cube": its 8
+    vertices, 12 edge midpoints and 6 face-diagonal midpoints from
+    (5, 4, 3); "cube_axis": axis-aligned rays in the face planes, across
+    shared edges; "blob": 64 edge midpoints and 32 vertices of
+    ``blob_mesh`` from jittered points outside it."""
+    v, f = cube_mesh()
+    targets = [(x, y, z) for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]
+    for a in (-1, 1):
+        for b in (-1, 1):
+            targets += [(0.0, a, b), (a, 0.0, b), (a, b, 0.0)]
+    for a in (-1, 1):
+        targets += [(a, 0.0, 0.0), (0.0, a, 0.0), (0.0, 0.0, a)]
+    targets = np.asarray(targets, np.float32)
+    d = targets - np.asarray([5.0, 4.0, 3.0], np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.asarray([5.0, 4.0, 3.0], np.float32), d.shape)
+    cases = [("cube", v, f, o.copy(), d)]
+    o, d = [], []
+    for axis in range(3):
+        for u_val in (-1.0, 0.0, 1.0):
+            for v_val in (-1.0, 0.0, 1.0):
+                origin = np.zeros(3, np.float32)
+                origin[axis] = -5.0
+                origin[(axis + 1) % 3] = u_val
+                origin[(axis + 2) % 3] = v_val
+                o.append(origin)
+                d.append(np.eye(3, dtype=np.float32)[axis])
+    cases.append(("cube_axis", v, f, np.stack(o), np.stack(d)))
+    vb, fb = blob_mesh()
+    rng = np.random.RandomState(3)
+    e0 = vb[fb[:, [0, 1, 2]].ravel()]
+    e1 = vb[fb[:, [1, 2, 0]].ravel()]
+    sel = rng.choice(len(e0), 64, replace=False)
+    mids = 0.5 * (e0[sel] + e1[sel])
+    targets = np.concatenate([mids, vb[rng.choice(len(vb), 32, replace=False)]])
+    radial = targets / np.linalg.norm(targets, axis=1, keepdims=True)
+    origins = targets - 4.0 * radial + rng.normal(scale=0.3, size=targets.shape)
+    d = targets - origins
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cases.append(("blob", vb, fb, origins.astype(np.float32),
+                  d.astype(np.float32)))
+    return cases
 
 
 def field_rays(n, seed=0):

@@ -264,8 +264,8 @@ def _coherence_order(origin, direction, root_lo, root_hi):
     """Coherence sort key: direction octant (3 high bits) then a 15-bit
     Morton code of the origin inside the root AABB; the permutation that
     sorts it, stably. Neighbouring threads then walk similar node paths."""
-    lo = torch.tensor(root_lo, dtype=origin.dtype, device=origin.device)
-    hi = torch.tensor(root_hi, dtype=origin.dtype, device=origin.device)
+    lo = torch.as_tensor(root_lo, dtype=origin.dtype, device=origin.device)
+    hi = torch.as_tensor(root_hi, dtype=origin.dtype, device=origin.device)
     span = torch.clamp(hi - lo, min=1e-6)
     i32 = torch.int32
     octant = ((direction[:, 0] > 0).to(i32) * 4

@@ -18,9 +18,15 @@ the nearest boundary crossing over the scene's entities and returns a
       children's crossings and take the first at which the program's
       inside-state flips).
 
+Mesh entities follow: each mesh is intersected in its local frame by
+``meshtrace.mesh_intersect`` (the CUDA kernel ``mesh_bvh_winner`` on the
+card), the local direction deliberately not renormalised so t stays in world
+units, and merges into the running nearest hit with a strict ``t < t_best``.
+A mesh winner's normal is the barycentric blend of its vertex normals
+(smoothing) or its face normal; it is exiting where it hit a back face.
+
 Float32 epsilon strategy: scale-relative offsets ``eps * max(1, |t|, |p|)``
 where the reference uses 1e-9 absolute offsets in f64 (sphere.pyx:42).
-Mesh entities raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,9 +41,10 @@ from ..compiler.scene import CompiledScene, _program_to_closure
 from ..core.math import batch as vmath
 from ..primitive import analytic as _a
 from .analytic_bvh import analytic_bvh_winner
+from .meshtrace import mesh_intersect
 
 __all__ = ["HitRecord", "intersect_scene", "leaf_candidates", "leaf_contains",
-           "entity_contains", "T_EPS"]
+           "entity_contains", "mesh_contains", "T_EPS"]
 
 _INF = float("inf")
 T_EPS = 1e-4  # minimum ray-parameter advance (relative-scaled below)
@@ -61,13 +68,9 @@ class HitRecord:
     exiting: Any  # bool[N] ray was inside the solid (reference 'exiting')
     inside_point: Any  # f32[N,3] epsilon-displaced relaunch point inside
     outside_point: Any  # f32[N,3] epsilon-displaced relaunch point outside
-
-
-def _no_meshes(scene):
-    if scene.mesh_entities:
-        raise NotImplementedError(
-            "mesh entities need the mesh intersection kernels, which this "
-            "package does not carry yet")
+    tri: Any = None  # i32[N] winning triangle of a mesh entity (-1 otherwise)
+    bary_u: Any = None  # f32[N] barycentric u of the mesh hit
+    bary_v: Any = None  # f32[N] barycentric v of the mesh hit
 
 
 def _safe(params, m):
@@ -104,10 +107,24 @@ def leaf_contains(scene: CompiledScene, point):
     return torch.cat(parts, dim=-1)
 
 
+def mesh_contains(mesh, point):
+    """Point-in-mesh for a closed mesh: a +z probe ray from each point
+    [N,3]; inside iff the nearest face it meets is a back face
+    (mesh.pyx:805-831). An open mesh contains nothing."""
+    if not mesh.closed:
+        return torch.zeros(point.shape[:-1], dtype=torch.bool,
+                           device=point.device)
+    o_loc = vmath.transform_point(mesh.w2l[None], point)
+    up = torch.zeros_like(point)
+    up[:, 2] = 1.0
+    d_loc = vmath.transform_vector(mesh.w2l[None], up)
+    res = mesh_intersect(mesh, o_loc, d_loc, torch.zeros_like(point[:, 0]))
+    return (res["tri"] >= 0) & ~res["front"]
+
+
 def entity_contains(scene: CompiledScene, point):
     """Point-in-entity tests: bool[..., E] (reference World.contains,
     core/scenegraph/world.pyx:149)."""
-    _no_meshes(scene)
     out = torch.zeros(point.shape[:-1] + (scene.n_entities,), dtype=torch.bool,
                       device=point.device)
     if scene.n_leaves:
@@ -117,6 +134,9 @@ def entity_contains(scene: CompiledScene, point):
                 out[..., e] = lc[..., leaf_idx]
         for e, leaf_ids, program in scene.csg_entities:
             out[..., e] = _program_to_closure(program)(lc[..., list(leaf_ids)])
+    for e, slot in scene.mesh_entities:
+        out[..., e] = mesh_contains(scene.meshes[slot], point.reshape(-1, 3)
+                                    ).reshape(point.shape[:-1])
     return out
 
 
@@ -208,7 +228,6 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
     exiting) without the differentiable recompute. ``leaf_bvh=False`` takes
     the streaming route even where the scene has BVH tables (the reference's
     SOURCE_TPU_LEAF_BVH=0)."""
-    _no_meshes(scene)
     N = origin.shape[0]
     dev = origin.device
     eps = T_EPS * torch.clamp(torch.amax(torch.abs(origin), dim=-1), min=1.0)
@@ -386,6 +405,20 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         leaf_best = torch.where(better, bleaf.to(torch.int32), leaf_best)
         csg_t.append((e, binside))
 
+    # meshes, each in its local frame (direction NOT renormalised: t stays
+    # in world units), merged with the strict t < t_best
+    mesh_win = []
+    for e, slot in scene.mesh_entities:
+        mesh = scene.meshes[slot]
+        res = mesh_intersect(mesh, vmath.transform_point(mesh.w2l[None], origin),
+                             vmath.transform_vector(mesh.w2l[None], direction),
+                             eps)
+        t_m = torch.where(res["tri"] >= 0, res["t"], _INF)
+        better = t_m < t_best
+        t_best = torch.where(better, t_m, t_best)
+        ent_best = torch.where(better, e, ent_best)
+        mesh_win.append((e, mesh, res))
+
     entity = ent_best
     t = t_best
     hit = torch.isfinite(t) & (entity >= 0)
@@ -424,6 +457,29 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
             inside_before = torch.where(entity == e, win["inside"],
                                         inside_before)
 
+    # mesh winners: smoothed (or face) normal; exiting from the face's
+    # orientation (mesh.pyx:718-804)
+    win_tri = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    win_u = torch.zeros((N,), dtype=origin.dtype, device=dev)
+    win_v = torch.zeros((N,), dtype=origin.dtype, device=dev)
+    for e, mesh, res in mesh_win:
+        m = (entity == e) & hit
+        tri_idx = torch.clamp(res["tri"], min=0).long()
+        if mesh.smoothing:
+            tri = mesh.triangles.long()[tri_idx]
+            vn = mesh.vertex_normals
+            w0 = (1.0 - res["u"] - res["v"])[:, None]
+            n_loc = (w0 * vn[tri[:, 0]] + res["u"][:, None] * vn[tri[:, 1]]
+                     + res["v"][:, None] * vn[tri[:, 2]])
+        else:
+            n_loc = mesh.face_normals[tri_idx]
+        n_w = vmath.normalise(vmath.transform_normal(mesh.w2l[None], n_loc))
+        n_world = torch.where(m[:, None], n_w, n_world)
+        inside_before = torch.where(m, ~res["front"], inside_before)
+        win_tri = torch.where(m, res["tri"], win_tri)
+        win_u = torch.where(m, res["u"], win_u)
+        win_v = torch.where(m, res["v"], win_v)
+
     # orient the normal away from the solid: along the ray when exiting,
     # against it when entering
     d_dot_n = vmath.dot(direction, n_world)
@@ -443,4 +499,7 @@ def intersect_scene(scene: CompiledScene, origin, direction, t_min_scale=None,
         exiting=inside_before,
         inside_point=point - n_world * off,
         outside_point=point + n_world * off,
+        tri=win_tri,
+        bary_u=win_u,
+        bary_v=win_v,
     )

@@ -18,13 +18,13 @@ Two routes share the loop over spans and its stream compaction:
   * the wavefront route: one ``trace_step`` per bounce, its stages separate
     tensor programs — ``intersect_scene`` (tracer/intersect.py, with the
     analytic-BVH kernel on the card), the volume stage and the material
-    dispatch — for the scenes the fused route rejects (CSG above all) and,
+    dispatch — for the scenes the fused route rejects (CSG and meshes) and,
     on request (``route="wavefront"``), for any scene. It rounds the
     spectral state to its dtype after every bounce, as the reference's
     ``trace_step`` does; the fused span does not.
 
-Custom BSDFs, the Roughen modifier, Blend/Add mixes, inhomogeneous volumes,
-meshes, and the differentiable wavefront route raise ``NotImplementedError``.
+Custom BSDFs, the Roughen modifier, Blend/Add mixes, inhomogeneous volumes
+and the differentiable wavefront route raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from ..optical.material.base import (
 )
 from ..primitive import analytic as _a
 from . import fused
-from .intersect import HitRecord, intersect_scene
+from .intersect import HitRecord, intersect_scene, mesh_contains
 
 __all__ = ["RayConfig", "RayState", "init_rays", "trace_step", "trace_rays",
            "trace_rays_diff"]
@@ -338,10 +338,6 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
 
 def _check_wavefront(scene: CompiledScene):
     """Raise on what the wavefront route does not carry yet."""
-    if scene.mesh_entities:
-        raise NotImplementedError(
-            "mesh entities need the mesh intersection kernels, which this "
-            "package does not carry yet")
     if scene.custom_materials:
         raise NotImplementedError(
             "custom DiscreteBSDF/ContinuousBSDF materials are not part of "
@@ -665,6 +661,9 @@ def _entity_inside(scene: CompiledScene, e, point):
     g = scene.simple_leaf_of_entity[e]
     if g >= 0:
         return _leaf_inside(scene, g, point)
+    for me, slot in scene.mesh_entities:
+        if me == e:
+            return mesh_contains(scene.meshes[slot], point)
     return torch.zeros(point.shape[:-1], dtype=torch.bool, device=point.device)
 
 

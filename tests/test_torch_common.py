@@ -1,8 +1,15 @@
 """Shared inputs of the source_tpu_torch parity tests (no tests in here):
-the test configuration, the JAX-side "zoo" scene, and the carrier that hands
-a JAX-compiled scene to the port as numpy arrays."""
+the test configuration, the JAX-side "zoo" scene, the carriers that hand a
+compiled scene across between the two packages as numpy arrays, and the
+compile of a JAX reference with LLVM's optimisation off."""
+
+import contextlib
+import os
 
 import numpy as np
+
+import jax
+import jax.numpy as jnp
 
 import source_tpu as S
 from source_tpu.optical import InterpolatedSF
@@ -11,9 +18,13 @@ from source_tpu.optical.material import (
     Lambert, NullSurface, PerfectReflectingSurface, RoughConductor,
     UniformSurfaceEmitter, UniformVolumeEmitter,
 )
+from source_tpu.compiler.scene import CompiledScene as JaxCompiledScene
 from source_tpu.primitive import Box, Cone, Cylinder, Parabola, Sphere, Torus
+from source_tpu.tracer.meshtrace import MeshTables as JaxMeshTables
 
-from source_tpu_torch.bridge import ARRAY_FIELDS, STATIC_FIELDS, scene_from_numpy
+from source_tpu_torch.bridge import (
+    ARRAY_FIELDS, MESH_ARRAYS, MESH_STATIC, STATIC_FIELDS, scene_from_numpy,
+)
 
 B = 5  # spectral bins of every parity test
 CFG = dict(max_depth=6, extinction_prob=0.1, extinction_min_depth=3,
@@ -67,7 +78,49 @@ def carry_scene(js, device="cpu"):
     arrays = {k: np.asarray(getattr(js, k)) for k in ARRAY_FIELDS}
     if js.leaf_bvh is not None:
         arrays["leaf_bvh"] = {k: np.asarray(v) for k, v in js.leaf_bvh.items()}
+    arrays["meshes"] = [
+        {**{k: np.asarray(getattr(m, k)) for k in MESH_ARRAYS},
+         **{k: getattr(m, k) for k in MESH_STATIC}} for m in js.meshes]
     static = {k: getattr(js, k) for k in STATIC_FIELDS}
     static["volume_entities"] = tuple(
         r[:3] + (None,) + r[4:] for r in js.volume_entities)
     return scene_from_numpy(arrays, static, device=device)
+
+
+def to_jax(ts):
+    """The port's compiled scene as the JAX package's, so both trace the same
+    tables, meshes included (without the TPU packing of a mesh, which the
+    JAX package's CPU route does not read). Spectral baking is held to the
+    reference in tests/test_torch_compile.py; the JAX compile of a
+    dispersive glass costs seconds of eager resampling."""
+    arrays = {k: jnp.asarray(getattr(ts, k).numpy()) for k in ARRAY_FIELDS}
+    static = {k: getattr(ts, k) for k in STATIC_FIELDS}
+    bvh = (None if ts.leaf_bvh is None else
+           {k: jnp.asarray(v.numpy()) for k, v in ts.leaf_bvh.items()})
+    meshes = tuple(JaxMeshTables(
+        **{k: jnp.asarray(getattr(m, k).numpy()) for k in MESH_ARRAYS},
+        **{k: getattr(m, k) for k in MESH_STATIC}) for m in ts.meshes)
+    return JaxCompiledScene(**arrays, **static, leaf_bvh=bvh, meshes=meshes)
+
+
+@contextlib.contextmanager
+def env(**kw):
+    """Environment variables set for the duration of a with-block."""
+    prev = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def jax_compiled(fn, *args):
+    """``fn`` compiled by XLA for the CPU with LLVM's optimisation off (at
+    the default level the CPU build of the reference's ``trace_step``
+    returns a zero normal on some CSG lanes, ROADMAP.md queue 3)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})

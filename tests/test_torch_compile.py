@@ -144,9 +144,10 @@ def test_spec_descriptor_layout(pairs):
 
 def test_unported_parts_raise():
     """What the port does not cover yet says so instead of going wrong. CSG
-    compiles and traces (the wavefront route); custom BSDFs, Roughen,
-    Blend/Add mixes, inhomogeneous volumes, meshes and the differentiable
-    wavefront route raise, each naming what is missing."""
+    and meshes compile and trace (the wavefront route); custom BSDFs,
+    Roughen, Blend/Add mixes, inhomogeneous volumes, the differentiable
+    wavefront route (a mesh scene among its cases) and direct primitive
+    queries raise, each naming what is missing."""
     import dataclasses
     from source_tpu_torch.optical.material.base import VOL_INHOMOGENEOUS
     world = scenes.furnace()
@@ -188,10 +189,18 @@ def test_unported_parts_raise():
         with pytest.raises(NotImplementedError, match=match):
             T.render_batch(dataclasses.replace(ok, **change), T.RayConfig(), o,
                            d, device="cpu")
+    # meshes compile and trace forward; the differentiable route and the
+    # direct primitive queries on a mesh do not exist yet
+    from source_tpu_torch.primitive import Mesh
     mesh_world = T.World()
-    Sphere(1.0, parent=mesh_world, material=Lambert()).is_mesh = True
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.compile_scene(mesh_world, T.SpectralConfig(*SPECTRAL), device="cpu")
+    mesh = Mesh(*scenes.cube_mesh(), closed=True, parent=mesh_world,
+                material=Lambert())
+    with pytest.raises(NotImplementedError):
+        mesh.hit(None)
+    ms = T.compile_scene(mesh_world, T.SpectralConfig(*SPECTRAL), device="cpu")
+    with pytest.raises(NotImplementedError, match="differentiable wavefront"):
+        T.render_batch(ms, T.RayConfig(), o, d, differentiable=True,
+                       device="cpu")
     # CSG now compiles, and traces on the wavefront route
     from source_tpu_torch.primitive import Intersect
     csg = T.World()

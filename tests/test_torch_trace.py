@@ -182,14 +182,17 @@ def test_compaction_overflow_is_unbiased(cornell_pair):
 _IMPORT_CHECK = """
 import importlib.util, sys
 import source_tpu_torch
-from source_tpu_torch.tracer import fused
+from source_tpu_torch.tracer import analytic_bvh, fused, mesh_bvh, meshtrace, watertight
+from source_tpu_torch.primitive.mesh import Mesh, MeshData
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "source_tpu", "triton")]
 assert not bad, bad
-assert not fused._libraries  # nothing was built or loaded by importing
+# nothing was built or loaded by importing
+assert not fused._libraries
+assert analytic_bvh._library is None and mesh_bvh._library is None
 print("clean")
 """
 

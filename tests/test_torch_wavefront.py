@@ -35,9 +35,6 @@ Every JAX reference is built once per module.
       route's tolerances.
 """
 
-import contextlib
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -47,7 +44,6 @@ import jax.numpy as jnp
 
 from demos.csg import build_world as jax_csg_world
 import source_tpu as S
-from source_tpu.compiler.scene import CompiledScene as JaxCompiledScene
 from source_tpu.optical.material.lambert import Lambert as JaxLambert
 from source_tpu.primitive import analytic as JA
 from source_tpu.tracer import pallas_analytic as JPA
@@ -65,45 +61,11 @@ from source_tpu_torch.tracer import analytic_bvh as TAB
 from source_tpu_torch.tracer.intersect import intersect_scene
 from source_tpu_torch.tracer.wavefront import trace_step
 
-from source_tpu_torch.bridge import ARRAY_FIELDS, STATIC_FIELDS
-
 from test_torch_common import B, carry_scene
+from test_torch_common import env as _env, jax_compiled as _jax_compiled, to_jax
 
 SPECTRAL = (375.0, 740.0, B)
 MAX_FLIP = 0.005
-
-
-@contextlib.contextmanager
-def _env(**kw):
-    """Environment variables set for the duration of a with-block."""
-    prev = {k: os.environ.get(k) for k in kw}
-    os.environ.update(kw)
-    try:
-        yield
-    finally:
-        for k, v in prev.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-def _jax_compiled(fn, *args):
-    """``fn`` compiled by XLA for the CPU with LLVM's optimisation off."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
-
-
-def to_jax(ts):
-    """The port's compiled scene as the JAX package's, so both trace the same
-    tables (spectral baking is held to the reference in
-    tests/test_torch_compile.py; the JAX compile of the demo's glasses costs
-    seconds of eager resampling)."""
-    arrays = {k: jnp.asarray(getattr(ts, k).numpy()) for k in ARRAY_FIELDS}
-    static = {k: getattr(ts, k) for k in STATIC_FIELDS}
-    bvh = (None if ts.leaf_bvh is None else
-           {k: jnp.asarray(v.numpy()) for k, v in ts.leaf_bvh.items()})
-    return JaxCompiledScene(**arrays, **static, leaf_bvh=bvh)
 
 
 @pytest.fixture(scope="module")
