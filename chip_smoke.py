@@ -11,21 +11,27 @@ against its plain PyTorch version on the card, runs the furnace checks
 the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24
 iterations, forward through ``compile_scene`` -> ``render_batch`` and the
 training step through ``render_loss_and_grads``, each once through the
-whole-span kernels and once through the per-bounce kernels; and the CSG demo
+whole-span kernels and once through the per-bounce kernels, and both again
+with the span kernels drawing their own uniforms (``rng="kernel"``, Philox in
+the kernel: phase ``krng``); the per-bounce kernel beside its two profiling
+variants, decisions replayed and loads and stores alone, over the flagship's
+24 bounces (phase ``fusedprof``); and the CSG demo
 (demos/csg.py) at 512x512 rays, 15 bins, max_depth 24, 32 iterations, with
 compaction, through ``render_batch`` on the wavefront route; the mesh demo
 (demos/mesh_render.py) at 512x384 rays, 12 bins, max_depth 12, 16
 iterations, with compaction, on the wavefront route, and a world holding a
 1.31M-triangle icosphere. Every phase prints one JSON line; any failure exits
 non-zero. Without a CUDA device the script exits 2 and prints no result.
-``--phases bvh_kernels,wavefront`` runs a subset while developing (the last
-line is then not a pass).
+``--phases krng,fusedprof`` runs a subset while developing (the last line is
+then not a pass).
 """
 
 import argparse
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -36,6 +42,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM data sheet, f32 outside the tensor cores
+# 32-bit integer operations per second outside the tensor cores: 64 INT32
+# lanes per SM (Hopper architecture white paper) x 132 SMs x 1.98 GHz, the
+# clock at which the data sheet's f32 rate is 128 lanes x 2 (FMA)
+INT32_OPS = 64 * 132 * 1.98e9
 RTOL, ATOL = 1e-3, 1e-4     # kernel vs plain on lanes whose choices agree
 MAX_FLIP = 0.005            # lanes per bounce that may choose differently
 # lanes that hit a torus (see torus_lanes): (worst lane, as a multiple of
@@ -270,13 +280,18 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
         worst = {k: max(worst[k], now[k]) for k in worst}
     # timed at the first bounce, where every ray is alive
     segs = int((fused.fused_bounce_fwd(spec, tab, desc, st0, u_all[0])[1] & 1).sum())
-    ms = time_ms(lambda: fused.fused_bounce_fwd(spec, tab, desc, st0, u_all[0]), 20)
+    # device time (the kernel is shorter than its wrapper's enqueue), and
+    # back to back at the host's pace, as the other rows are timed
+    ms = device_ms(lambda: fused.fused_bounce_fwd(spec, tab, desc, st0, u_all[0]))
+    host_paced_ms = time_ms(
+        lambda: fused.fused_bounce_fwd(spec, tab, desc, st0, u_all[0]), 20)
     plain_ms = time_ms(lambda: fused.bounce_fwd_plain(spec, tab, st0, u_all[0]), 2)
     nbytes = table_bytes + 2 * state_bytes + 4 * N + 4 * fused.N_UNIFORMS * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, segs * flops / F32_FLOPS * 1e3
     res["fused_bounce_fwd"] = dict(
         scene=name, n=N, bins=bins, segments=segs, **worst, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        host_paced_ms=host_paced_ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes_ms=t_bytes, operations_ms=t_ops)
     if torus:
@@ -682,7 +697,8 @@ def phase_furnace(T, scenes):
 
 
 KERNELS = ("fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
-           "fused_span_bwd", "analytic_bvh_winner", "mesh_bvh_winner")
+           "fused_span_bwd", "fused_bounce_replay", "fused_bounce_io",
+           "analytic_bvh_winner", "mesh_bvh_winner")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -990,6 +1006,435 @@ def phase_step(T, fused, scenes):
          peak_bytes=peak, stages=stages, bounce_bwd_by_bounce=by_bounce,
          forward_render_batch_wall_ms=forward_wall_ms)
     return launches
+
+
+def bound(nbytes, f32_ops, int_ops=0):
+    """The least time of a kernel: bytes over the memory rate against its
+    f32 operations over the f32 rate and its integer operations over the
+    integer rate (separate pipes; the busier one bounds)."""
+    t = dict(bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             f32_ms=f32_ops / F32_FLOPS * 1e3,
+             int32_ms=int_ops / INT32_OPS * 1e3)
+    ops = max(t["f32_ms"], t["int32_ms"])
+    return dict(t, bound_ms=max(t["bytes_ms"], ops),
+                bound_by="bytes" if t["bytes_ms"] >= ops else "operations",
+                operations_type="f32" if t["f32_ms"] >= t["int32_ms"] else "int32")
+
+
+def bitwise_equal(a, b):
+    """Packed states or tensors equal bit for bit (-0 and NaN included)."""
+    if isinstance(a, dict):
+        return all(bitwise_equal(a[k], b[k]) for k in a)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def run_ms(fn):
+    """(result, milliseconds) of one call of ``fn()`` by CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def krng_case(name, world, bins, cfg, o, d, seed, T, fused, against_plain):
+    """The kernel-RNG branch of fused_span_fwd (K3) and fused_span_bwd (K4)
+    on one scene: each with ``seed=`` against the same kernel fed the plain
+    generator's uniforms of the same seed (bit for bit: this holds the
+    device's Philox to ``philox_uniforms``), K4's replay against K3, the
+    counter offset of a span that starts later, and (``against_plain``) each
+    against its plain version, with times and bounds beside the host-RNG
+    branch's."""
+    scene = T.compile_scene(world, T.SpectralConfig(375.0, 740.0, bins))
+    n, n_steps = o.shape[0], cfg.max_iters
+    key = torch.tensor(seed, dtype=torch.int32, device="cuda")
+    st0 = fused.pack_state(T.init_rays(o, d, bins))
+    res = {}
+
+    # --- K3 on the forward tables
+    spec, entry = fused.scene_tables(scene, cfg)
+    desc, tab = entry["desc"], fused.forward_table(scene, spec, entry)
+    k_st, k_bits = fused.fused_span_fwd(spec, tab, desc, st0, seed=key,
+                                        n_steps=n_steps)
+    u_ref = fused.philox_uniforms(key, n, 0, n_steps)
+    h_st, h_bits = fused.fused_span_fwd(spec, tab, desc, st0, u_ref)
+    torch.cuda.synchronize()
+    if not (bitwise_equal(k_st, h_st) and torch.equal(k_bits, h_bits)):
+        fail(f"krng {name}: K3 with seed= differs from K3 fed "
+             "philox_uniforms of the same seed")
+    # a span that starts at bounce 5: the counter carries the absolute bounce
+    s5, b5 = fused.fused_span_fwd(spec, tab, desc, st0, seed=key, start=5,
+                                  n_steps=4)
+    r5, c5 = fused.fused_span_fwd(
+        spec, tab, desc, st0, fused.philox_uniforms(key, n, 5, 4))
+    if not (bitwise_equal(s5, r5) and torch.equal(b5, c5)):
+        fail(f"krng {name}: K3 with seed= and start=5 differs from the plain "
+             "stream")
+    segs = int((k_bits & 1).sum())
+    entered = n + int(((k_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
+    row = dict(scene=name, n=n, bins=bins, n_steps=n_steps, segments=segs,
+               entered=entered, equal_to_fed_kernel=True,
+               equal_at_start_5=True)
+    if against_plain:
+        # the plain version on the card: the plain generator, then the plain
+        # span (what the wrapper runs for CPU tensors)
+        (p_st, p_bits), plain_ms = run_ms(lambda: fused.span_fwd_plain(
+            spec, tab, st0, fused.philox_uniforms(key, n, 0, n_steps)))
+        same = canon(k_bits) == p_bits
+        agree = torch.cumprod(same.int(), 0).bool()[-1]
+        dev = compare_state(k_st, p_st, agree, torus_lanes(spec, p_bits),
+                            TORUS_SPAN)
+        if not dev.pop("ok") or 1.0 - float(agree.float().mean()) > MAX_FLIP:
+            fail(f"krng {name}: K3 (kernel RNG) against its plain version {dev}")
+        ms = time_ms(lambda: fused.fused_span_fwd(
+            spec, tab, desc, st0, seed=key, n_steps=n_steps), 5)
+        host_ms = time_ms(lambda: fused.fused_span_fwd(
+            spec, tab, desc, st0, u_ref), 5)
+        state_bytes = 4 * n * (8 + 2 * bins)
+        table_bytes = 4 * (tab.numel() + desc.numel())
+        row.update(dev, diverged=1.0 - float(agree.float().mean()), ms=ms,
+                   host_rng_ms=host_ms, plain_ms=plain_ms,
+                   **bound(table_bytes + 2 * state_bytes + 4 * n_steps * n,
+                           segs * fused.bounce_flops(spec),
+                           entered * fused.PHILOX_OPS))
+    res["fused_span_fwd"] = row
+
+    # --- K4 on the general tables, as the step traces
+    spec, entry = fused.scene_tables(scene, cfg, general=True)
+    desc = entry["desc"]
+    with torch.no_grad():
+        tab = fused.pack_tabvec(scene, spec)
+    g_st, g_bits = fused.fused_span_fwd(spec, tab, desc, st0, seed=key,
+                                        n_steps=n_steps)
+    rng = np.random.RandomState(seed[0] % 1000)
+    cots = [torch.as_tensor(rng.standard_normal((r, n)).astype(np.float32)).cuda()
+            for r in (3, 3, bins, bins)]
+    cot_scale = float(max(c.abs().max() for c in cots))
+    st4 = {k: st0[k] for k in ("o", "d", "thr", "aux")}
+    got = fused.fused_span_bwd(spec, tab, desc, st4, None, g_bits, *cots,
+                               return_replay=True, seed=key)
+    fed = fused.fused_span_bwd(spec, tab, desc, st4, u_ref, g_bits, *cots,
+                               return_replay=True)
+    torch.cuda.synchronize()
+    want = torch.cat([g_st["o"], g_st["d"], g_st["thr"], g_st["aux"]])
+    if not bitwise_equal(got[4], want):
+        fail(f"krng {name}: K4's replay (kernel RNG) does not end in K3's "
+             "state bit for bit")
+    if not all(bitwise_equal(a, b) for a, b in zip(got[:3], fed[:3])):
+        fail(f"krng {name}: K4 with seed= differs from K4 fed the same "
+             "uniforms on the state cotangents")
+    tab_fed, ok_fed = compare_table(spec, fused, got[3], fed[3])
+    if not ok_fed:
+        fail(f"krng {name}: K4 with seed= against K4 fed the same uniforms: "
+             f"table cotangent {tab_fed}")
+    live = int((g_bits != 0).sum())
+    entered = n + int(((g_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
+    row = dict(scene=name, n=n, bins=bins, n_steps=n_steps, live=live,
+               entered=entered, replay_equal=True, equal_to_fed_kernel=True,
+               table_vs_fed_kernel=tab_fed)
+    if against_plain:
+        ref, plain_ms = run_ms(lambda: fused.span_bwd_plain(
+            spec, tab, st4, fused.philox_uniforms(key, n, 0, n_steps), g_bits,
+            *cots))
+        every = torch.ones(n, dtype=torch.bool, device="cuda")
+        vs_plain = compare_cots(got[:3], ref[:3], every, cot_scale)
+        tab_plain, ok_plain = compare_table(spec, fused, got[3], ref[3])
+        if vs_plain["beyond"] > MAX_FLIP or not ok_plain:
+            fail(f"krng {name}: K4 (kernel RNG) against its plain version "
+                 f"{vs_plain} table {tab_plain}")
+        args = (spec, tab, desc, st4)
+        ms = time_ms(lambda: fused.fused_span_bwd(
+            *args, None, g_bits, *cots, seed=key), 3)
+        host_ms = time_ms(lambda: fused.fused_span_bwd(
+            *args, u_ref, g_bits, *cots), 3)
+        table_bytes = 4 * (2 * tab.numel() + desc.numel())
+        nbytes = table_bytes + 4 * n * ((8 + bins) + (6 + 2 * bins) + (6 + bins)) \
+            + 4 * entered * (1 + 2 * (8 + bins))
+        row.update(vs_plain=vs_plain, table_vs_plain=tab_plain,
+                   max_abs=vs_plain["max_abs"], ms=ms, host_rng_ms=host_ms,
+                   plain_ms=plain_ms,
+                   **bound(nbytes, live * (fused.bounce_bwd_flops(spec)
+                                           + fused.bounce_flops(spec)),
+                           (entered + live) * fused.PHILOX_OPS))
+    res["fused_span_bwd"] = row
+    return res
+
+
+def phase_krng(T, fused, scenes):
+    """The kernel RNG on the flagship: K3 and K4 with ``seed=`` against the
+    plain generator and their plain versions, the zoo scene as a correctness
+    input, the furnace, the estimator's mean, and ``render_batch`` and the
+    training step with ``rng="kernel"`` beside ``rng="host"``."""
+    from source_tpu_torch.optical.material.base import MAT_EMITTER
+    bins = FLAGSHIP["bins"]
+    scene, cfg, o, d, _u_fixed, _same_u = flagship(T, fused, scenes)
+    n = o.shape[0]
+    flag = krng_case("cornell", scenes.cornell_box(glass=True), bins, cfg,
+                     o, d, (0x5EED, -77), T, fused, True)
+    zo, zd = scenes.scatter_rays(N_ZOO, seed=1)
+    zoo = krng_case("zoo", scenes.zoo(), 5,
+                    T.RayConfig(max_depth=6, max_iters=24),
+                    torch.as_tensor(zo).cuda(), torch.as_tensor(zd).cuda(),
+                    (31, 4), T, fused, False)
+
+    # the furnace: exactly 1.0 with the kernel's own stream
+    fscene = T.compile_scene(scenes.furnace(), T.SpectralConfig(375.0, 740.0, 15))
+    fd = np.random.RandomState(2).normal(size=(65536, 3)).astype(np.float32)
+    fd /= np.linalg.norm(fd, axis=1, keepdims=True)
+    fst = T.render_batch(fscene, T.RayConfig(max_iters=4),
+                         np.zeros((65536, 3), np.float32), fd,
+                         torch.Generator(device="cuda").manual_seed(3),
+                         rng="kernel")
+    if not bool((fst.radiance == 1.0).all()) or int(fst.segments) != 65536:
+        fail("krng: furnace radiance is not exactly 1.0 with rng='kernel'")
+
+    # the estimator's mean: kernel against host stream, MIS on against off
+    o_s, d_s = o[::4].contiguous(), d[::4].contiguous()
+    runs = {}
+    for rng, mis in (("kernel", True), ("host", True), ("kernel", False)):
+        c = T.RayConfig(max_depth=16, max_iters=24, importance_sampling=mis)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        runs[rng, mis] = T.render_batch(scene, c, o_s, d_s, gen,
+                                        rng=rng).radiance.t()
+    means = {}
+    for what, a, b in (("kernel_vs_host", ("kernel", True), ("host", True)),
+                       ("mis_on_vs_off", ("kernel", True), ("kernel", False))):
+        diff, se, ok = mean_within(runs[a], runs[b], n_sigma=4.0)
+        means[what] = dict(diff=diff, standard_error=se)
+        if not ok:
+            fail(f"krng: {what} means differ by {diff} (standard error {se})")
+
+    # forward render_batch of the flagship: launches, wall, peak memory
+    fwd = {}
+    for rng in ("kernel", "host"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        st = T.render_batch(scene, cfg, o, d,
+                            torch.Generator(device="cuda").manual_seed(7),
+                            rng=rng)
+        torch.cuda.synchronize()
+        counts = read_counts(fused)
+        if counts != dict(NO_LAUNCHES, fused_span_fwd=1):
+            fail(f"krng: render_batch(rng={rng!r}) must launch fused_span_fwd "
+                 f"once and nothing else: {counts}")
+        rad = st.radiance.float()
+        if tuple(rad.shape) != (n, bins) or not bool(torch.isfinite(rad).all()):
+            fail(f"krng: render_batch(rng={rng!r}) radiance has the wrong "
+                 "shape or is not finite")
+        peak = torch.cuda.max_memory_allocated() - base
+        walls, segs = [], 0
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = T.render_batch(scene, cfg, o, d, gen, rng=rng)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            segs = int(st.segments)
+        wall = float(np.median(walls[1:]))
+        fwd[rng] = dict(launches=counts, wall_ms=wall * 1e3, segments=segs,
+                        segments_per_s=segs / wall, peak_bytes=peak)
+
+    # the training step: kernel RNG on the whole-span route against the
+    # host RNG on the whole-span route and the default per-bounce route
+    target = torch.zeros((n, bins), device="cuda")
+    emit_rows = [m for m, t in enumerate(scene.mat_types) if t == MAT_EMITTER]
+    want = {"kernel": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1),
+            "host_multi": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1),
+            "host_perbounce": dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
+                                   fused_bounce_bwd=cfg.max_iters)}
+    kw = {"kernel": dict(rng="kernel"), "host_multi": dict(span="multi"),
+          "host_perbounce": {}}
+    step = {}
+    for route, args in kw.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        loss, grads = T.render_loss_and_grads(
+            scene, cfg, o, d, target,
+            torch.Generator(device="cuda").manual_seed(7), **args)
+        torch.cuda.synchronize()
+        counts = read_counts(fused)
+        peak = torch.cuda.max_memory_allocated() - base
+        if counts != want[route]:
+            fail(f"krng: step[{route}] launches {counts}, want {want[route]}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            fail(f"krng: step[{route}] gradient is not finite")
+        lhs = float(sum((scene.mat_spectra[m, 0] * grads["mat_spectra"][m, 0])
+                        .sum() for m in emit_rows))
+        euler = lhs / (2.0 * float(loss))
+        if abs(euler - 1.0) > EULER_TOL:
+            fail(f"krng: step[{route}] Euler identity on the emission rows: "
+                 f"{euler}")
+        walls = []
+        for _ in range(6):
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.render_loss_and_grads(scene, cfg, o, d, target, gen, **args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        step[route] = dict(launches=counts, euler=euler, loss=float(loss),
+                           wall_ms=float(np.median(walls[1:])) * 1e3,
+                           peak_bytes=peak)
+
+    emit("krng", rays=n, bins=bins, max_iters=cfg.max_iters,
+         philox_ops_per_ray_bounce=fused.PHILOX_OPS,
+         int32_ops_per_s=INT32_OPS,
+         fused_span_fwd=[flag["fused_span_fwd"], zoo["fused_span_fwd"]],
+         fused_span_bwd=[flag["fused_span_bwd"], zoo["fused_span_bwd"]],
+         furnace_exact=True, means=means, render_batch=fwd, step=step,
+         host_uniform_bytes=4 * cfg.max_iters * n * fused.N_UNIFORMS)
+    return dict(flag, forward_launches=fwd["kernel"]["launches"],
+                step_launches=step["kernel"]["launches"])
+
+
+def sass_counts(lib_path, kernel):
+    """Global loads and stores in the SASS of ``kernel`` in a built library,
+    by cuobjdump; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, inside = dict(ldg=0, stg=0), False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside:
+            counts["ldg"] += " LDG" in ln
+            counts["stg"] += " STG" in ln
+    return counts
+
+
+def phase_fusedprof(T, fused, scenes):
+    """The flagship's per-bounce route over its 24 bounces, three ways: the
+    chain of fused_bounce_fwd (K1), of fused_bounce_replay (K9) replaying
+    K1's bitfields, and of fused_bounce_io (K10). K9 must equal K1 bit for
+    bit at every bounce and its plain version within the kernels'
+    tolerances, K10 its input. Per bounce the median time of each: K1 - K9
+    is the decision path, K9 - K10 the arithmetic, K10 the load/store and
+    launch floor."""
+    bins = FLAGSHIP["bins"]
+    scene, cfg, o, d, u_fixed, _same_u = flagship(T, fused, scenes)
+    n = o.shape[0]
+    spec, entry = fused.scene_tables(scene, cfg)
+    desc, tab = entry["desc"], fused.forward_table(scene, spec, entry)
+    st0 = fused.pack_state(T.init_rays(o, d, bins,
+                                       spectral_dtype=cfg.spectral_dtype))
+    u_p = fused.pack_u(u_fixed)
+
+    # the three chains, each kernel's counts set to 0 just before and read
+    # just after
+    reset_counts(fused)
+    states, bits = [st0], []
+    for u in u_p:
+        new, b = fused.fused_bounce_fwd(spec, tab, desc, states[-1], u)
+        states.append(new)
+        bits.append(b)
+    replayed = [st0]
+    for k, u in enumerate(u_p):
+        replayed.append(fused.fused_bounce_replay(spec, tab, desc, replayed[-1],
+                                                  u, bits[k]))
+    io = [st0]
+    io_bits = []
+    for u in u_p:
+        new, b = fused.fused_bounce_io(spec, tab, desc, io[-1], u)
+        io.append(new)
+        io_bits.append(b)
+    torch.cuda.synchronize()
+    counts = read_counts(fused)
+    want = dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
+                fused_bounce_replay=cfg.max_iters,
+                fused_bounce_io=cfg.max_iters)
+    if counts != want:
+        fail(f"fusedprof: launches {counts}, want {want}")
+    for k in range(cfg.max_iters):
+        if not bitwise_equal(replayed[k + 1], states[k + 1]):
+            fail(f"fusedprof: K9 differs from K1 at bounce {k}")
+        if not bitwise_equal(io[k + 1], st0) or bool(io_bits[k].any()):
+            fail(f"fusedprof: K10 does not return its input at bounce {k}")
+
+    # K9 and K10 against their plain versions at every bounce
+    worst = dict(max_abs=0.0, max_rel=0.0)
+    every = torch.ones(n, dtype=torch.bool, device="cuda")
+    none = torch.zeros(n, dtype=torch.bool, device="cuda")
+    plain_ms = dict(replay=[], io=[])
+    for k, u in enumerate(u_p):
+        ref, ms = run_ms(lambda: fused.bounce_replay_plain(
+            spec, tab, states[k], u, bits[k]))
+        plain_ms["replay"].append(ms)
+        dev = compare_state(replayed[k + 1], ref, every, none, TORUS_BOUNCE)
+        if not dev.pop("ok") or not torch.equal(replayed[k + 1]["aux"],
+                                                ref["aux"]):
+            fail(f"fusedprof: K9 against bounce_core replay at bounce {k}: {dev}")
+        worst = {m: max(worst[m], dev[m]) for m in worst}
+        (io_ref, io_ref_bits), ms = run_ms(lambda: fused.bounce_io_plain(
+            spec, tab, states[k], u))
+        plain_ms["io"].append(ms)
+        got, got_bits = fused.fused_bounce_io(spec, tab, desc, states[k], u)
+        if not (bitwise_equal(got, io_ref) and torch.equal(got_bits, io_ref_bits)):
+            fail(f"fusedprof: K10 against its plain version at bounce {k}")
+
+    # per-bounce device times, the three kernels in turns on the same state;
+    # K1 also as the kernels phase times it (back-to-back launches, the host
+    # enqueueing while the card runs), to show what the host's pace adds
+    per = dict(k1=[], k9=[], k10=[], k1_host_paced=[])
+    for k, u in enumerate(u_p):
+        st, b = states[k], bits[k]
+        per["k1"].append(device_ms(
+            lambda: fused.fused_bounce_fwd(spec, tab, desc, st, u)))
+        per["k9"].append(device_ms(
+            lambda: fused.fused_bounce_replay(spec, tab, desc, st, u, b)))
+        per["k10"].append(device_ms(
+            lambda: fused.fused_bounce_io(spec, tab, desc, st, u)))
+        per["k1_host_paced"].append(time_ms(
+            lambda: fused.fused_bounce_fwd(spec, tab, desc, st, u), 20))
+    med = {k: float(np.median(v)) for k, v in per.items()}
+    alive = [int((s["aux"][0] > 0.5).sum()) for s in states[:-1]]
+    segs = [int((b & 1).sum()) for b in bits]
+    state_bytes = 4 * n * (8 + 2 * bins)
+    table_bytes = 4 * (tab.numel() + desc.numel())
+    # bounds at the first bounce, where every ray is alive
+    b9 = bound(table_bytes + 2 * state_bytes + 4 * n
+               + 4 * fused.N_UNIFORMS * alive[0],
+               segs[0] * fused.bounce_flops(spec, replay=True))
+    b10 = bound(table_bytes + 2 * state_bytes + 4 * n
+                + 4 * fused.N_UNIFORMS * alive[0], 0)
+    b1 = bound(table_bytes + 2 * state_bytes + 4 * n
+               + 4 * fused.N_UNIFORMS * alive[0],
+               segs[0] * fused.bounce_flops(spec))
+    sass = sass_counts(fused.build_library(bins)[0], "k_bounce_io")
+    if sass is not None and (sass["ldg"] < 8 + 2 * bins + fused.N_UNIFORMS
+                             or sass["stg"] < 8 + 2 * bins + 1):
+        fail(f"fusedprof: K10's SASS has fewer global loads or stores than "
+             f"the state and uniforms need: {sass}")
+    rows = {
+        "fused_bounce_replay": dict(
+            max_abs=worst["max_abs"], max_rel=worst["max_rel"],
+            ms=per["k9"][0], ms_median_over_bounces=med["k9"],
+            plain_ms=plain_ms["replay"][0], **b9),
+        "fused_bounce_io": dict(
+            max_abs=0.0, ms=per["k10"][0], ms_median_over_bounces=med["k10"],
+            plain_ms=plain_ms["io"][0], **b10),
+    }
+    emit("fusedprof", rays=n, bins=bins, bounces=cfg.max_iters,
+         launches=counts, k9_equals_k1=True, k10_identity=True,
+         per_bounce_ms=per, alive=alive, segments=segs,
+         median_ms=med, decision_ms=med["k1"] - med["k9"],
+         arithmetic_ms=med["k9"] - med["k10"], floor_ms=med["k10"],
+         k1_bound_ms=b1["bound_ms"], k1_bound_by=b1["bound_by"],
+         k10_sass=sass, kernels=rows)
+    return dict(rows=rows, launches=counts)
 
 
 def min_advance(o):
@@ -1309,16 +1754,35 @@ def median_ms(fn, reps):
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def once_ms(fn):
-    """Milliseconds of one call of ``fn()`` by CUDA events."""
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+def device_ms(fn, reps=5):
+    """Median device milliseconds of one ``fn()`` over ``reps`` calls, each
+    between its own pair of CUDA events, with the card held busy
+    (``torch.cuda._sleep``) while the host enqueues them all, so that the
+    events time the kernels back to back and not the host's pace (a wrapper's
+    checks and allocations take tens of microseconds, as long as a small
+    kernel). The spin is lengthened until it outlasts the enqueue."""
     fn()
-    b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b)
+    cycles = 400_000 * reps
+    for _ in range(6):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(cycles)
+        pairs = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if e0.elapsed_time(pairs[0][0]) > host_ms:
+            return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+        cycles *= 4
+    fail("device_ms: the host did not get ahead of the card")
 
 
 def mesh_local(mesh, o, d):
@@ -1399,7 +1863,7 @@ def mesh_case(name, mesh, o, d, eps, mb, mt, orders=False):
         o_s, d_s, e_s = o[sort], d[sort], eps[sort]
         res["sorted_ms"] = median_ms(lambda: mb._launch(mesh, o_s, d_s, e_s), 20)
         res["sort_ms"] = median_ms(order, 20)
-    res["plain_ms"] = once_ms(lambda: mt.mesh_intersect_plain(mesh, o, d, eps))
+    res["plain_ms"] = run_ms(lambda: mt.mesh_intersect_plain(mesh, o, d, eps))[1]
     nv, tv = p["nodes_visited"].float(), p["tris_tested"].float()
     nodes = int(p["nodes_touched"].sum())
     tris = mesh.triangles[p["tris_touched"]]
@@ -1702,13 +2166,16 @@ def phase_mesh(T, fused, scenes):
     return dict(launches=launches, big_launches=big_launches)
 
 
-def kernels_line(cornell, grad, launches, step_launches, bvh_row,
+def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
                  wave_launches, mesh_rows, mesh_launches):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
     ``render_batch`` for the forward kernels (which the training step
-    launches as often again), ``render_loss_and_grads`` for the adjoints."""
+    launches as often again), ``render_loss_and_grads`` for the adjoints;
+    the kernel-RNG branches of the span kernels those of ``render_batch``
+    and ``render_loss_and_grads`` with ``rng="kernel"``, and the profiling
+    kernels those of the fusedprof chains."""
     src = "source_tpu_torch/csrc/"
     rows = []
     for name, m, line, source, count in (
@@ -1725,6 +2192,30 @@ def kernels_line(cornell, grad, launches, step_launches, bvh_row,
             replaces=f"source_tpu/tracer/pallas_fused.py:{line}",
             launches=count[name], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=None))
+    # the span kernels' kernel-RNG branch (_gen_u of the TPU kernels)
+    for name, m, count in (
+            ("fused_span_fwd (kernel RNG)", krng["fused_span_fwd"],
+             krng["forward_launches"]),
+            ("fused_span_bwd (kernel RNG)", krng["fused_span_bwd"],
+             krng["step_launches"])):
+        base = name.split()[0]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=src + ("fused_kernels.cu" if "fwd" in base
+                          else "fused_bwd_kernels.cu") + " + philox.cuh",
+            replaces="source_tpu/tracer/pallas_fused.py:1709",
+            launches=count[base], max_abs_err=m["max_abs"], ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=None))
+    # the profiling kernels at the flagship's first bounce
+    for name, line in (("fused_bounce_replay", 1375), ("fused_bounce_io", 1423)):
+        m = prof["rows"][name]
+        rows.append(dict(
+            name=name, route="cuda", source=src + "fused_kernels.cu",
+            replaces=f"source_tpu/tracer/pallas_fused.py:{line}",
+            launches=prof["launches"][name], max_abs_err=m["max_abs"],
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
     # the analytic-BVH kernel on the CSG demo's camera rays; its launches
     # are those of the wavefront route's render_batch of the CSG demo
@@ -1759,8 +2250,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,kernels,furnace,main,grad_kernels,step,"
-                            "bvh_kernels,wavefront,mesh_kernels,mesh_furnace,"
-                            "mesh")
+                            "krng,fusedprof,bvh_kernels,wavefront,"
+                            "mesh_kernels,mesh_furnace,mesh")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1771,7 +2262,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
-    cornell = grad = launches = step_launches = bvh_row = wave = None
+    cornell = grad = launches = step_launches = krng = prof = None
+    bvh_row = wave = None
     mesh_rows = mesh_launches = None
     mesh_furnace = False
     if "env" in phases:
@@ -1786,6 +2278,10 @@ def main():
         grad = phase_grad_kernels(T, fused, scenes)
     if "step" in phases:
         step_launches = phase_step(T, fused, scenes)
+    if "krng" in phases:
+        krng = phase_krng(T, fused, scenes)
+    if "fusedprof" in phases:
+        prof = phase_fusedprof(T, fused, scenes)
     if "bvh_kernels" in phases:
         bvh_row = phase_bvh_kernels(T, analytic_bvh, scenes)
     if "wavefront" in phases:
@@ -1798,13 +2294,14 @@ def main():
     if "mesh" in phases:
         mesh_launches = phase_mesh(T, fused, scenes)
     emit("total", seconds=time.perf_counter() - t_start)
-    if None in (cornell, grad, launches, step_launches, bvh_row, wave,
-                mesh_rows, mesh_launches) or not mesh_furnace:
+    if None in (cornell, grad, launches, step_launches, krng, prof, bvh_row,
+                wave, mesh_rows, mesh_launches) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
-                                  bvh_row, wave, mesh_rows, mesh_launches)),
+                                  krng, prof, bvh_row, wave, mesh_rows,
+                                  mesh_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -617,10 +617,23 @@ __device__ __forceinline__ float light_pdf(const float* imp, int n_imp, V3 point
 // --- the bounce ---------------------------------------------------------------
 // ``ray`` must be alive on entry. Returns the choice bitfield; a ray that the
 // roulette or the depth bound stops before its segment returns 0.
-__device__ __forceinline__ int bounce(const float* __restrict__ tab,
-                                      const int* __restrict__ desc,
-                                      const Cfg& cfg, Ray& ray,
-                                      const float* u) {
+//
+// MODE is DECIDE (the forward kernels: every discrete choice is made here and
+// returned in the bitfield) or REPLAY (the profiling kernel
+// fused_bounce_replay: the choices the bitfield stores -- winner leaf, hit,
+// exiting, light pick and index, transmit, TIR, checkerboard parity,
+// continues, counts toward depth, alive next -- are taken from ``bits``, as
+// ``bounce_core(..., bits)`` does, and the code that makes them is not run:
+// the other leaves' hit tests, the Fresnel reflectivity of the path roulette,
+// the cell count, the throughput maximum). The roulette is recomputed from
+// ``u`` in both, as in ``bounce_core``. REPLAY returns ``bits``.
+enum { DECIDE = 0, REPLAY = 1 };
+
+template <int MODE>
+__device__ __forceinline__ int bounce_as(const float* __restrict__ tab,
+                                         const int* __restrict__ desc,
+                                         const Cfg& cfg, Ray& ray,
+                                         const float* u, int bits) {
   const int L = desc[D_L];
   const int n_vol = desc[D_NVOL];
   const int n_imp = desc[D_NIMP];
@@ -650,34 +663,58 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
   float t_best = BIG;
   int win = 0;
   bool ins_sel = false;
-  for (int g = 0; g < L; ++g) {
-    const int* lf = leaves + D_LEAF_WORDS * g;
-    const float* rec = tab + 20 * g;
-    int kind = lf[3];
-    float t_g;
+  if constexpr (MODE == REPLAY) {
+    // the winner's distance alone: the other leaves enter the bounce only
+    // through the choice
+    win = (bits >> WIN_SHIFT) & 0x1FF;
+    ins_sel = (bits >> B_EXIT) & 1;
+    const int* lf = leaves + D_LEAF_WORDS * win;
+    const float* rec = tab + 20 * win;
     bool ins_g;
-    if (kind == 1) {  // world sphere: centre + radius, no transform
+    if (lf[3] == 1) {
       V3 p0 = V3{o.x - rec[0], o.y - rec[1], o.z - rec[2]};
-      t_g = hit_sphere(p0, d, rec[3], eps, ins_g);
-    } else if (kind == 2) {  // world AABB
-      t_g = hit_box(o, d, rec, eps, ins_g);
+      t_best = hit_sphere(p0, d, rec[3], eps, ins_g);
+    } else if (lf[3] == 2) {
+      t_best = hit_box(o, d, rec, eps, ins_g);
     } else {
-      t_g = hit_local(lf[0], xf_point(rec, o), xf_dir(rec, d), rec + 12, eps,
-                      ins_g);
+      t_best = hit_local(lf[0], xf_point(rec, o), xf_dir(rec, d), rec + 12,
+                         eps, ins_g);
     }
-    // strict <: the first of equal distances wins; leaf 0's flag is the
-    // default of a miss
-    if (t_g < t_best || g == 0) {
-      bool better = t_g < t_best;
-      if (better) {
-        t_best = t_g;
-        win = g;
+  } else {
+    for (int g = 0; g < L; ++g) {
+      const int* lf = leaves + D_LEAF_WORDS * g;
+      const float* rec = tab + 20 * g;
+      int kind = lf[3];
+      float t_g;
+      bool ins_g;
+      if (kind == 1) {  // world sphere: centre + radius, no transform
+        V3 p0 = V3{o.x - rec[0], o.y - rec[1], o.z - rec[2]};
+        t_g = hit_sphere(p0, d, rec[3], eps, ins_g);
+      } else if (kind == 2) {  // world AABB
+        t_g = hit_box(o, d, rec, eps, ins_g);
+      } else {
+        t_g = hit_local(lf[0], xf_point(rec, o), xf_dir(rec, d), rec + 12, eps,
+                        ins_g);
       }
-      if (better || g == 0) ins_sel = ins_g;
+      // strict <: the first of equal distances wins; leaf 0's flag is the
+      // default of a miss
+      if (t_g < t_best || g == 0) {
+        bool better = t_g < t_best;
+        if (better) {
+          t_best = t_g;
+          win = g;
+        }
+        if (better || g == 0) ins_sel = ins_g;
+      }
     }
   }
-  bool hit = t_best < 1e30f;
-  if (flags & F_MAX_DISTANCE) hit = hit && (t_best <= cfg.max_distance);
+  bool hit;
+  if constexpr (MODE == REPLAY) {
+    hit = (bits >> B_HIT) & 1;
+  } else {
+    hit = t_best < 1e30f;
+    if (flags & F_MAX_DISTANCE) hit = hit && (t_best <= cfg.max_distance);
+  }
 
   // the winner's normal at the sanitised distance (0 on a miss: BIG * d
   // would overflow)
@@ -799,10 +836,15 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
   bool pick_light = false;
   V3 dir_light = V3{0.0f, 0.0f, 0.0f};
   if (flags & F_NEEDS_MIS) {
-    // cdf pick (searchsorted 'left' == count of cdf entries < u)
-    for (int i = 0; i < n_imp; ++i) lidx += (imp[6 * i + 5] < u[3]) ? 1 : 0;
-    lidx = min(max(lidx, 0), n_imp - 1);
-    pick_light = u[0] < cfg.w_imp;
+    if constexpr (MODE == REPLAY) {
+      lidx = (bits >> LIGHT_SHIFT) & 0x1F;
+      pick_light = (bits >> B_PICKLIGHT) & 1;
+    } else {
+      // cdf pick (searchsorted 'left' == count of cdf entries < u)
+      for (int i = 0; i < n_imp; ++i) lidx += (imp[6 * i + 5] < u[3]) ? 1 : 0;
+      lidx = min(max(lidx, 0), n_imp - 1);
+      pick_light = u[0] < cfg.w_imp;
+    }
     if (mt == MAT_LAMBERT || mt == MAT_ROUGH_CONDUCTOR) {
       V3 ax_s;
       float cm_s;
@@ -837,13 +879,19 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
     V3 td = norm3(gamma * d.x + temp_t * n.x, gamma * d.y + temp_t * n.y,
                   gamma * d.z + temp_t * n.z);
     V3 rdir = reflect(d, n);
-    float c2 = -dot3(n, td);
-    float den1 = n1 * c1 + n2 * c2;
-    float den2 = n1 * c2 + n2 * c1;
-    float r1 = (n1 * c1 - n2 * c2) / (fabsf(den1) > 1e-12f ? den1 : 1e-12f);
-    float r2 = (n1 * c2 - n2 * c1) / (fabsf(den2) > 1e-12f ? den2 : 1e-12f);
-    float reflectivity = 0.5f * (r1 * r1 + r2 * r2);
-    bool tr = trans_only || (u[0] < (1.0f - reflectivity));
+    bool tr;
+    if constexpr (MODE == REPLAY) {
+      tr = (bits >> B_TRANSMIT) & 1;
+      tir = (bits >> B_TIR) & 1;
+    } else {
+      float c2 = -dot3(n, td);
+      float den1 = n1 * c1 + n2 * c2;
+      float den2 = n1 * c2 + n2 * c1;
+      float r1 = (n1 * c1 - n2 * c2) / (fabsf(den1) > 1e-12f ? den1 : 1e-12f);
+      float r2 = (n1 * c2 - n2 * c1) / (fabsf(den2) > 1e-12f ? den2 : 1e-12f);
+      float reflectivity = 0.5f * (r1 * r1 + r2 * r2);
+      tr = trans_only || (u[0] < (1.0f - reflectivity));
+    }
     tr = tr && !tir;
     diel_ok = m && !(tir && trans_only);
     diel_d = tr ? td : rdir;
@@ -872,12 +920,16 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
       break;
     }
     case MAT_CHECKERBOARD: {
-      float width = maxp(mrec[0], 1e-12f);
-      // per-entity local frame (checkerboard.pyx:39 pattern frame)
-      V3 pl = xf_point(tab + wl[4], point);
-      int cells = (int)floorf(pl.x / width) + (int)floorf(pl.y / width) +
-                  (int)floorf(pl.z / width);
-      check_parity = (cells % 2) == 0;
+      if constexpr (MODE == REPLAY) {
+        check_parity = (bits >> B_PARITY) & 1;
+      } else {
+        float width = maxp(mrec[0], 1e-12f);
+        // per-entity local frame (checkerboard.pyx:39 pattern frame)
+        V3 pl = xf_point(tab + wl[4], point);
+        int cells = (int)floorf(pl.x / width) + (int)floorf(pl.y / width) +
+                    (int)floorf(pl.z / width);
+        check_parity = (cells % 2) == 0;
+      }
       FB_SURFACE(check_parity ? s0[b] : s1[b], 0.0f)
       break;
     }
@@ -983,10 +1035,17 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
 #undef FB_SURFACE
 
   // --- state update ------------------------------------------------------------------
-  float thr_max = ray.thr[0];
+  bool alive_next;
+  if constexpr (MODE == REPLAY) {
+    continues = (bits >> B_CONT) & 1;
+    counts_depth = (bits >> B_CNTD) & 1;
+    alive_next = (bits >> B_ALIVENEXT) & 1;
+  } else {
+    float thr_max = ray.thr[0];
 #pragma unroll
-  for (int b = 1; b < NB; ++b) thr_max = maxp(thr_max, ray.thr[b]);
-  bool alive_next = active && continues && (thr_max > 0.0f);
+    for (int b = 1; b < NB; ++b) thr_max = maxp(thr_max, ray.thr[b]);
+    alive_next = active && continues && (thr_max > 0.0f);
+  }
 #pragma unroll
   for (int b = 0; b < NB; ++b) ray.rad[b] = ray.rad[b] + radd[b];
   if (active) {
@@ -996,12 +1055,24 @@ __device__ __forceinline__ int bounce(const float* __restrict__ tab,
   }
   ray.alive = alive_next ? 1.0f : 0.0f;
 
-  return (1 << B_ALIVE) | ((int)hit << B_HIT) | ((int)transmit << B_TRANSMIT) |
-         ((int)tir_out << B_TIR) | ((int)pick_light << B_PICKLIGHT) |
-         ((int)continues << B_CONT) | ((int)counts_depth << B_CNTD) |
-         ((int)alive_next << B_ALIVENEXT) | ((int)ins_sel << B_EXIT) |
-         ((int)check_parity << B_PARITY) | (lidx << LIGHT_SHIFT) |
-         (win << WIN_SHIFT);
+  if constexpr (MODE == REPLAY) {
+    return bits;
+  } else {
+    return (1 << B_ALIVE) | ((int)hit << B_HIT) | ((int)transmit << B_TRANSMIT) |
+           ((int)tir_out << B_TIR) | ((int)pick_light << B_PICKLIGHT) |
+           ((int)continues << B_CONT) | ((int)counts_depth << B_CNTD) |
+           ((int)alive_next << B_ALIVENEXT) | ((int)ins_sel << B_EXIT) |
+           ((int)check_parity << B_PARITY) | (lidx << LIGHT_SHIFT) |
+           (win << WIN_SHIFT);
+  }
+}
+
+// The forward kernels' bounce: every choice made here.
+__device__ __forceinline__ int bounce(const float* __restrict__ tab,
+                                      const int* __restrict__ desc,
+                                      const Cfg& cfg, Ray& ray,
+                                      const float* u) {
+  return bounce_as<DECIDE>(tab, desc, cfg, ray, u, 0);
 }
 
 }  // namespace fb

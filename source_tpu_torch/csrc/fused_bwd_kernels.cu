@@ -6,8 +6,12 @@
 // fused_bounce_bwd replaces the per-bounce backward Pallas kernel of the JAX
 // package (source_tpu/tracer/pallas_fused.py, _bounce_bwd_call -> _bwd_kernel);
 // fused_span_bwd replaces its whole-span backward kernel (_span_bwd_call ->
-// _span_bwd_kernel). The TPU kernels take jax.vjp of the bounce inside the
-// kernel; here the reverse pass is written out (fused_adjoint.cuh).
+// _span_bwd_kernel), with both of its uniform sources: uniforms read from
+// device memory, or regenerated in the kernel (the TPU kernel's _gen_u
+// branch) by the forward span kernel's Philox (philox.cuh) from the same
+// seed, so the replay draws what the forward drew. The TPU kernels take
+// jax.vjp of the bounce inside the kernel; here the reverse pass is written
+// out (fused_adjoint.cuh).
 //
 // Layout: one thread per ray, SoA [C, N] as the forward kernels. The scene
 // table and the descriptor are copied to shared memory, and beside them one
@@ -30,8 +34,11 @@
 // fused_span_bwd keeps the cotangents in registers across the span and moves
 // per bounce only the uniforms, the bitfield and the saved entry state (8 + B
 // floats written in phase 1, read back in phase 2), in global memory where the
-// TPU kernel had VMEM scratch. Making them fast is later work.
+// TPU kernel had VMEM scratch; with the kernel RNG not the uniforms, which
+// both phases draw again (about 300 integer operations each). Making them
+// fast is later work.
 #include "fused_adjoint.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -117,13 +124,18 @@ k_bounce_bwd(const float* __restrict__ tab, int n_tab,
 // bit for bit) and writes the entry state of every bounce the ray enters to
 // ``scratch`` [n_steps, 8 + B, N]; phase 2 walks those bounces in reverse,
 // chaining the per-bounce adjoint with the cotangents in registers. ``replay``
-// (may be null) receives the state phase 1 ended in, [8 + B, N].
+// (may be null) receives the state phase 1 ended in, [8 + B, N]. With KRNG
+// the uniforms of bounce ``step`` are drawn as k_span_fwd<true> draws them,
+// from (lane i, bounce start + step) under the key ``seed``, in both phases;
+// ``u`` is not read.
+template <bool KRNG>
 __global__ void __launch_bounds__(THREADS)
 k_span_bwd(const float* __restrict__ tab, int n_tab,
            const int* __restrict__ desc, int n_desc,
            const float* __restrict__ o, const float* __restrict__ d,
            const float* __restrict__ thr, const float* __restrict__ aux,
-           const float* __restrict__ u, const int* __restrict__ bits,
+           const float* __restrict__ u, const int* __restrict__ seed,
+           int start, const int* __restrict__ bits,
            const float* __restrict__ go, const float* __restrict__ gd,
            const float* __restrict__ gthr, const float* __restrict__ grad,
            float* __restrict__ go2, float* __restrict__ gd2,
@@ -136,6 +148,21 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
   float* s_gtab = load_tables(smem, &s_desc, tab, n_tab, desc, n_desc);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N) {
+    uint32_t k0 = 0u, k1 = 0u;
+    if constexpr (KRNG) {
+      k0 = (uint32_t)seed[0];
+      k1 = (uint32_t)seed[1];
+    }
+    // the uniforms of bounce ``step`` of the span
+    auto draw = [&](int step, float* uu) {
+      if constexpr (KRNG) {
+        fb::philox_uniforms((uint32_t)i, (uint32_t)(start + step), k0, k1, uu);
+      } else {
+        const float* us = u + (size_t)step * fb::N_UNIFORMS * N;
+#pragma unroll
+        for (int k = 0; k < fb::N_UNIFORMS; ++k) uu[k] = us[(size_t)k * N + i];
+      }
+    };
     // --- phase 1: forward replay, saving entry states ---------------------------
     int entered = 0;
     {
@@ -161,10 +188,8 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
         for (int b = 0; b < fb::NB; ++b) row[(6 + b) * (size_t)N] = ray.thr[b];
         row[(6 + fb::NB) * (size_t)N] = ray.alive;
         row[(7 + fb::NB) * (size_t)N] = ray.depth;
-        const float* us = u + (size_t)step * fb::N_UNIFORMS * N;
         float uu[fb::N_UNIFORMS];
-#pragma unroll
-        for (int k = 0; k < fb::N_UNIFORMS; ++k) uu[k] = us[(size_t)k * N + i];
+        draw(step, uu);
         fb::bounce(smem, s_desc, cfg, ray, uu);
         entered = step + 1;
       }
@@ -197,9 +222,7 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
       float t_in[fb::NB], uu[fb::N_UNIFORMS];
 #pragma unroll
       for (int b = 0; b < fb::NB; ++b) t_in[b] = row[(6 + b) * (size_t)N];
-      const float* us = u + (size_t)step * fb::N_UNIFORMS * N;
-#pragma unroll
-      for (int k = 0; k < fb::N_UNIFORMS; ++k) uu[k] = us[(size_t)k * N + i];
+      draw(step, uu);
       fb::bounce_bwd(smem, s_desc, cfg,
                      fb::V3{row[0], row[(size_t)N], row[2 * (size_t)N]},
                      fb::V3{row[3 * (size_t)N], row[4 * (size_t)N],
@@ -245,21 +268,34 @@ extern "C" int fused_bounce_bwd(
   return (int)cudaGetLastError();
 }
 
+// ``seed`` null: the uniforms ``u`` f32[n_steps, 10, N] are read; else
+// ``seed`` is the i32[2] on the device that fused_span_fwd drew bounces
+// start .. start + n_steps - 1 from (``u`` is not read).
 extern "C" int fused_span_bwd(
     const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
     const float* d, const float* thr, const float* aux, const float* u,
-    const int* bits, const float* go, const float* gd, const float* gthr,
-    const float* grad, float* go2, float* gd2, float* gthr2, float* parts,
-    float* scratch, float* replay, int N, int n_steps, int max_depth,
-    int ext_min_depth, float p_ext, float survive, float w_imp,
-    float one_m_w_imp, float max_distance, void* stream) {
+    const int* seed, int start, const int* bits, const float* go,
+    const float* gd, const float* gthr, const float* grad, float* go2,
+    float* gd2, float* gthr2, float* parts, float* scratch, float* replay,
+    int N, int n_steps, int max_depth, int ext_min_depth, float p_ext,
+    float survive, float w_imp, float one_m_w_imp, float max_distance,
+    void* stream) {
   if (N <= 0) return 0;
   size_t smem = smem_bytes(n_tab, n_desc);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   fb::Cfg cfg{max_depth, ext_min_depth, p_ext, survive, w_imp, one_m_w_imp,
               max_distance};
-  k_span_bwd<<<fused_bwd_blocks(N), THREADS, smem, (cudaStream_t)stream>>>(
-      tab, n_tab, desc, n_desc, o, d, thr, aux, u, bits, go, gd, gthr, grad,
-      go2, gd2, gthr2, parts, scratch, replay, N, n_steps, cfg);
+  if (seed != nullptr) {
+    k_span_bwd<true><<<fused_bwd_blocks(N), THREADS, smem,
+                       (cudaStream_t)stream>>>(
+        tab, n_tab, desc, n_desc, o, d, thr, aux, nullptr, seed, start, bits,
+        go, gd, gthr, grad, go2, gd2, gthr2, parts, scratch, replay, N,
+        n_steps, cfg);
+  } else {
+    k_span_bwd<false><<<fused_bwd_blocks(N), THREADS, smem,
+                        (cudaStream_t)stream>>>(
+        tab, n_tab, desc, n_desc, o, d, thr, aux, u, nullptr, 0, bits, go, gd,
+        gthr, grad, go2, gd2, gthr2, parts, scratch, replay, N, n_steps, cfg);
+  }
   return (int)cudaGetLastError();
 }

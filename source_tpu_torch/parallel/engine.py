@@ -30,9 +30,13 @@ def render_batch(scene: CompiledScene, cfg: RayConfig, origin, direction,
     """Trace a ray batch and return the final RayState: the shared device
     entry point. ``origin``/``direction`` are [N, 3] (tensors or arrays) and
     are moved to ``device``, where the scene must already live. ``trace_kw``
-    goes to ``trace_rays`` (``u_all``, ``shifts``, ``span``, ``route``), or
-    with ``differentiable`` to ``trace_rays_diff`` (``u_all``, ``shifts``,
-    ``span``)."""
+    goes to ``trace_rays`` (``u_all``, ``shifts``, ``span``, ``route``,
+    ``rng``, ``seeds``), or with ``differentiable`` to ``trace_rays_diff``
+    (``u_all``, ``shifts``, ``span``, ``rng``, ``seeds``). ``rng="kernel"``
+    has the whole-span kernel draw the bounce uniforms itself (Philox, one
+    seed per span from ``generator``) instead of taking a host draw; it runs
+    on the fused route's whole-span kernels only and raises ``ValueError``
+    elsewhere (``span="perbounce"``, a scene on the wavefront route)."""
     device = resolve_device(device)
     origin = torch.as_tensor(origin, dtype=torch.float32).to(device)
     direction = torch.as_tensor(direction, dtype=torch.float32).to(device)
@@ -56,7 +60,10 @@ def render_loss_and_grads(scene: CompiledScene, cfg: RayConfig, origin,
     Returns ``(loss, grads)``: ``grads`` maps each name of
     ``fused.TABLE_FIELDS`` to a tensor of that field's shape, zeros where the
     trace does not read it. The caller's scene is neither changed nor left
-    requiring gradients. ``trace_kw`` goes to ``trace_rays_diff``."""
+    requiring gradients. ``trace_kw`` goes to ``trace_rays_diff``; with
+    ``rng="kernel"`` the step runs the whole-span kernels, which draw their
+    uniforms themselves and keep the span's seed for the backward instead of
+    its uniforms."""
     device = resolve_device(device)
     leaves = {f: getattr(scene, f).detach().requires_grad_(True)
               for f in TABLE_FIELDS}

@@ -7,7 +7,7 @@ dispatch, state update — is ONE function per ray. Reference analogue: the
 whole recursive ``Ray.trace`` loop (raysect/optical/ray.pyx:338-455 +
 material dispatch).
 
-One function, its adjoint, and four kernels:
+One function, its adjoint, and six kernels:
 
   * ``bounce_core(spec, tget, state, u, bits)`` is the bounce as plain
     PyTorch ops on flat per-ray tensors. With ``bits=None`` it makes the
@@ -19,7 +19,11 @@ One function, its adjoint, and four kernels:
     (csrc/fused_kernels.cu): one bounce for every ray, one thread per ray.
   * ``fused_span_fwd`` launches ``fused_span_fwd``: ``n_steps`` bounces in
     one kernel with the ray state in registers; only the uniforms are read
-    and the choice bitfields written per bounce.
+    and the choice bitfields written per bounce. With the kernel RNG
+    (``seed=``) it reads no uniforms: it draws them in registers with
+    Philox4x32-10 (csrc/philox.cuh) keyed by the span's seed and counted by
+    (lane, absolute bounce); ``philox_uniforms`` is the same stream in torch
+    integer ops.
   * ``fused_bounce_bwd`` launches ``fused_bounce_bwd``
     (csrc/fused_bwd_kernels.cu): the vector-Jacobian product of one replayed
     bounce, cotangents of the ray state in, cotangents of the entry state
@@ -28,7 +32,14 @@ One function, its adjoint, and four kernels:
   * ``fused_span_bwd`` launches ``fused_span_bwd``: replays a whole span
     from its entry state, saving each bounce's entry state to scratch, then
     chains the per-bounce adjoints in reverse inside the kernel. Its plain
-    version is ``span_bwd_plain``.
+    version is ``span_bwd_plain``. Under the kernel RNG it draws the
+    forward's uniforms again from the same seed.
+  * ``fused_bounce_replay`` and ``fused_bounce_io`` launch the profiling
+    kernels of that name: ``fused_bounce_fwd`` with its decisions replayed
+    from a bitfield (plain version ``bounce_replay_plain``, ``bounce_core``
+    with ``bits``), and its loads and stores with no bounce (plain version
+    ``bounce_io_plain``, a copy). Their times beside ``fused_bounce_fwd``'s
+    split it into decision path, arithmetic and load/store floor.
 
 Every wrapper takes the plain version for CPU tensors and launches the kernel
 — or raises — for CUDA tensors; each counts its launches.
@@ -86,6 +97,8 @@ __all__ = ["FusedSpec", "fused_spec", "general_spec", "pack_tabvec",
            "spec_descriptor", "scene_tables", "forward_table", "bounce_core",
            "fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
            "fused_span_bwd", "bounce_bwd_plain", "span_bwd_plain",
+           "fused_bounce_replay", "fused_bounce_io", "bounce_replay_plain",
+           "bounce_io_plain", "philox4x32", "philox_uniforms",
            "fused_forward_span", "fused_span", "build_library"]
 
 _BIG = 3e38
@@ -1349,23 +1362,21 @@ def spec_descriptor(spec):
     return np.asarray(words, dtype=np.int32)
 
 
-def bounce_flops(spec):
+def bounce_flops(spec, replay=False):
     """Approximate f32 operations one live ray spends in one bounce of this
     spec (adds, multiplies, compares and selects counted 1; divide, sqrt,
     sin/cos and pow counted as the ~8 issue slots they cost). Used only to
     place a kernel's time beside the card's f32 peak; the per-type constants
-    are hand counts of the closed forms in this file."""
+    are hand counts of the closed forms in this file. ``replay``: the bounce
+    of ``fused_bounce_replay``, which tests the winning leaf alone (counted as
+    the mean leaf)."""
     per_type = {TYPE_SPHERE: 60, TYPE_BOX: 70, TYPE_CYLINDER: 110,
                 TYPE_CONE: 130, TYPE_PARABOLA: 140, TYPE_TORUS: 520}
     B = spec.bins
     ops = 40 + 2 * B  # roulette, eps, state update
-    for (tid, _e, _m, kind) in spec.leaves:
-        if kind == 1:
-            ops += 45
-        elif kind == 2:
-            ops += 60
-        else:
-            ops += 33 + per_type[tid]
+    leaf_ops = [45 if kind == 1 else 60 if kind == 2 else 33 + per_type[tid]
+                for (tid, _e, _m, kind) in spec.leaves]
+    ops += sum(leaf_ops) // len(leaf_ops) if replay else sum(leaf_ops)
     ops += 90  # winner's normal, orientation, offsets, frame
     for (_e, _m, kind, _leaf) in spec.volumes:
         ops += 30 + (12 * B if kind == VOL_BEER else 3 * B)
@@ -1402,6 +1413,74 @@ def bounce_bwd_flops(spec):
     return 3 * fwd + 8 * B
 
 
+# --- the span kernels' in-kernel generator: its plain version --------------------
+# Philox4x32-10 (csrc/philox.cuh) in torch integer ops. Torch's CPU build has
+# no uint32 arithmetic, so the words live in int64 and are masked to 32 bits;
+# the 32x32 -> 64-bit product of a round would overflow int64, so it is taken
+# in 16-bit halves of the counter word.
+
+_MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # Weyl increments of the key
+PHILOX_ROUNDS = 10
+PHILOX_DRAWS = 3  # calls per ray and bounce: 12 words, the first 10 used
+# integer operations one ray spends on one bounce's uniforms: per call and
+# round two 32x32 products as mul-lo and mul-hi (4) and four xors, a key bump
+# of two adds between rounds, and one shift per uniform
+PHILOX_OPS = PHILOX_DRAWS * (PHILOX_ROUNDS * 8 + (PHILOX_ROUNDS - 1) * 2) \
+    + N_UNIFORMS
+
+
+def _mulhilo(m, b):
+    """(high, low) 32-bit words of the product of the constant ``m`` and the
+    uint32 words ``b`` (int64 tensors)."""
+    p_lo = m * (b & 0xFFFF)           # < 2**48
+    p_hi = m * (b >> 16)              # < 2**48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 of the counter words ``ctr`` (four int64 tensors or
+    ints holding uint32) under the key ``key`` (two); returns four int64
+    tensors of uint32 words."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) & _MASK32 for k in key)
+    for r in range(PHILOX_ROUNDS):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & _MASK32
+            k1 = (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(seed, n_lanes, start, n_steps, device=None, first_lane=0):
+    """The uniforms the span kernels draw with the kernel RNG, f32[n_steps,
+    10, N] (the layout ``pack_u`` gives): for ray ``lane`` at absolute bounce
+    ``start + i``, Philox4x32-10 of the counters (lane, start + i, j, 0) for
+    j = 0, 1, 2 under the key ``seed`` (an i32[2] tensor, on ``device`` or the
+    default), the first 10 of the 12 words each as (w >> 8) * 2**-24, in
+    [0, 1 - 2**-24]. A lane's stream depends on its index in the batch and
+    the bounce index, never on how the batch is cut into blocks: the lanes
+    ``first_lane`` .. ``first_lane + n_lanes - 1`` drawn alone are those
+    lanes of a draw of the whole batch."""
+    seed = torch.as_tensor(seed, device=device)
+    dev = seed.device
+    key = seed.to(torch.int64) & _MASK32
+    lane = first_lane + torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    bounce = start + torch.arange(n_steps, dtype=torch.int64, device=dev)
+    draw = torch.arange(PHILOX_DRAWS, dtype=torch.int64, device=dev)
+    shape = (n_steps, PHILOX_DRAWS, n_lanes)
+    ctr = (lane[None, None, :].expand(shape), bounce[:, None, None].expand(shape),
+           draw[None, :, None].expand(shape),
+           torch.zeros((), dtype=torch.int64, device=dev))
+    words = torch.stack(philox4x32(ctr, (key[0], key[1])), dim=2)
+    words = words.reshape(n_steps, 4 * PHILOX_DRAWS, n_lanes)[:, :N_UNIFORMS]
+    return (words >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 # --- building and loading the kernels ------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -1412,8 +1491,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # are a translation unit of their own: both build in parallel, and a change to
 # the adjoint never moves the forward kernels' code.
 _SOURCES = {
-    "fwd": ("fused_kernels.cu", ("fused_bounce.cuh",)),
-    "bwd": ("fused_bwd_kernels.cu", ("fused_bounce.cuh", "fused_adjoint.cuh")),
+    "fwd": ("fused_kernels.cu", ("fused_bounce.cuh", "philox.cuh")),
+    "bwd": ("fused_bwd_kernels.cu", ("fused_bounce.cuh", "fused_adjoint.cuh",
+                                     "philox.cuh")),
 }
 _libraries = {}  # (which, bins) -> loaded ctypes library
 
@@ -1473,20 +1553,23 @@ def _library(bins, which="fwd"):
         tail = [i, i, f, f, f, f, f, p]
         if which == "fwd":
             # tab, n_tab, desc, n_desc, [state in x5], [state out x5], u,
-            # bits, N, (n_steps,) tail
-            state = [p] * 5
-            lib.fused_bounce_fwd.argtypes = (
-                [p, i, p, i] + state + state + [p, p, i] + tail)
-            lib.fused_span_fwd.argtypes = (
-                [p, i, p, i] + state + state + [p, p, i, i] + tail)
-            fns = (lib.fused_bounce_fwd, lib.fused_span_fwd)
+            # (seed, start,) bits, N, (n_steps,) tail; the I/O kernel takes
+            # no configuration
+            head = [p, i, p, i] + [p] * 10
+            lib.fused_bounce_fwd.argtypes = head + [p, p, i] + tail
+            lib.fused_span_fwd.argtypes = head + [p, p, i, p, i, i] + tail
+            lib.fused_bounce_replay.argtypes = head + [p, p, i] + tail
+            lib.fused_bounce_io.argtypes = head + [p, p, i, p]
+            fns = (lib.fused_bounce_fwd, lib.fused_span_fwd,
+                   lib.fused_bounce_replay, lib.fused_bounce_io)
         else:
-            # tab, n_tab, desc, n_desc, entry o d thr aux, u, bits,
-            # cotangents in go gd gthr g_rad, out go gd gthr, table partials,
-            # (scratch, replay_out,) N, (n_steps,) tail
-            head = [p, i, p, i] + [p] * 14
-            lib.fused_bounce_bwd.argtypes = head + [i] + tail
-            lib.fused_span_bwd.argtypes = head + [p, p, i, i] + tail
+            # tab, n_tab, desc, n_desc, entry o d thr aux, u, (seed, start,)
+            # bits, cotangents in go gd gthr g_rad, out go gd gthr, table
+            # partials, (scratch, replay_out,) N, (n_steps,) tail
+            lib.fused_bounce_bwd.argtypes = [p, i, p, i] + [p] * 14 + [i] + tail
+            lib.fused_span_bwd.argtypes = (
+                [p, i, p, i] + [p] * 5 + [p, i] + [p] * 9 + [p, p, i, i]
+                + tail)
             lib.fused_bwd_blocks.argtypes = [i]
             fns = (lib.fused_bounce_bwd, lib.fused_span_bwd,
                    lib.fused_bwd_blocks)
@@ -1538,6 +1621,31 @@ def _check_bits(bits, shape, dev):
         raise ValueError(f"bits must be a contiguous int32{list(shape)} on {dev}")
 
 
+def _check_seed(seed, dev):
+    if (not isinstance(seed, torch.Tensor) or seed.dtype != torch.int32
+            or tuple(seed.shape) != (2,) or seed.device != dev
+            or not seed.is_contiguous()):
+        raise ValueError(f"seed must be a contiguous int32[2] tensor on {dev}")
+
+
+def _uniform_source(u_all, seed, n_steps, N):
+    """The span's number of bounces, from exactly one of ``u_all``
+    f32[n_steps, 10, N] (host RNG) or ``seed`` with ``n_steps`` (kernel
+    RNG)."""
+    if (u_all is None) == (seed is None):
+        raise ValueError("pass exactly one of u_all (host RNG) or seed "
+                         "(kernel RNG)")
+    if u_all is not None:
+        if u_all.dim() != 3 or tuple(u_all.shape[1:]) != (N_UNIFORMS, N):
+            raise ValueError(f"u_all: shape {tuple(u_all.shape)}")
+        if n_steps is not None and n_steps != u_all.shape[0]:
+            raise ValueError(f"n_steps {n_steps}, u_all holds {u_all.shape[0]}")
+        return int(u_all.shape[0])
+    if n_steps is None:
+        raise ValueError("the kernel RNG needs n_steps")
+    return int(n_steps)
+
+
 def _cfg_args(spec):
     """RayConfig statics as kernel arguments. Derived constants are rounded
     from double exactly where the plain version's Python scalars are."""
@@ -1555,13 +1663,10 @@ def _state_of(st):
     }
 
 
-def bounce_fwd_plain(spec, tab, st, u):
-    """Plain PyTorch version of ``fused_bounce_fwd``: one ``bounce_core``
-    call on the packed state. A ray that is not alive after the roulette
-    (B_ALIVE clear) reports a zero bitfield: ``bounce_core`` leaves its other
-    decision bits unspecified, and nothing reads them."""
-    tget = tab.unbind(0).__getitem__
-    out = bounce_core(spec, tget, _state_of(st), tuple(u), None)
+def _packed_bounce(spec, tab, st, u, bits):
+    """``bounce_core`` on the packed state: (new packed state, bitfield)."""
+    out = bounce_core(spec, tab.unbind(0).__getitem__, _state_of(st),
+                      tuple(u), bits)
     new = {
         "o": torch.stack(out["o"]),
         "d": torch.stack(out["d"]),
@@ -1570,8 +1675,33 @@ def bounce_fwd_plain(spec, tab, st, u):
         "aux": torch.stack([torch.where(out["alive_next"], 1.0, 0.0),
                             out["depth"]]),
     }
-    bits = out["bits"]
+    return new, out["bits"]
+
+
+def bounce_fwd_plain(spec, tab, st, u):
+    """Plain PyTorch version of ``fused_bounce_fwd``: one ``bounce_core``
+    call on the packed state. A ray that is not alive after the roulette
+    (B_ALIVE clear) reports a zero bitfield: ``bounce_core`` leaves its other
+    decision bits unspecified, and nothing reads them."""
+    new, bits = _packed_bounce(spec, tab, st, u, None)
     return new, torch.where((bits & 1) > 0, bits, 0)
+
+
+def bounce_replay_plain(spec, tab, st, u, bits):
+    """Plain PyTorch version of ``fused_bounce_replay``: ``bounce_core`` in
+    replay mode on the packed state, the decisions taken from ``bits``. A ray
+    that enters dead, or that the roulette stops (its bitfield from
+    ``fused_bounce_fwd`` is 0), keeps its state as in ``bounce_fwd_plain``.
+    Returns the new packed state."""
+    return _packed_bounce(spec, tab, st, u, bits)[0]
+
+
+def bounce_io_plain(spec, tab, st, u):
+    """Plain PyTorch version of ``fused_bounce_io``: the state copied, a zero
+    bitfield."""
+    return ({k: st[k].clone() for k in _STATE_KEYS},
+            torch.zeros(st["o"].shape[1], dtype=torch.int32,
+                        device=st["o"].device))
 
 
 def span_fwd_plain(spec, tab, st, u_all):
@@ -1584,61 +1714,121 @@ def span_fwd_plain(spec, tab, st, u_all):
     return st, torch.stack(bits)
 
 
-def _launch(fn_name, spec, tab, desc, st, u, n_steps):
-    """Shared body of the two forward kernel wrappers for CUDA tensors."""
-    N = _check_state(spec, st, {"u": u, "tab": tab})
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn_name, spec, tab, desc, st, args, cfg=True):
+    """Shared body of the forward kernel wrappers for CUDA tensors: the
+    tables, the state in and a fresh state out, then ``args`` (pointers as
+    ints, None for a null one), the configuration and the stream. Returns
+    the new packed state."""
     _check_tables(spec, tab, desc)
     lib = _library(spec.bins)
     out = {k: torch.empty_like(st[k]) for k in _STATE_KEYS}
-    if n_steps is None:
-        bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
-        steps = []
-    else:
-        # rays that die early leave the loop; their later bitfields are 0
-        bits = torch.zeros((n_steps, N), dtype=torch.int32, device=tab.device)
-        steps = [n_steps]
     stream = torch.cuda.current_stream(tab.device).cuda_stream
     with torch.cuda.device(tab.device):
         err = getattr(lib, fn_name)(
             tab.data_ptr(), tab.numel(), desc.data_ptr(), desc.numel(),
             *[st[k].data_ptr() for k in _STATE_KEYS],
             *[out[k].data_ptr() for k in _STATE_KEYS],
-            u.data_ptr(), bits.data_ptr(), N, *steps,
-            *_cfg_args(spec), stream)
+            *args, *(_cfg_args(spec) if cfg else ()), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
-    return out, bits
+    return out
+
+
+def _check_u(u, N):
+    if tuple(u.shape) != (N_UNIFORMS, N):
+        raise ValueError(f"u: shape {tuple(u.shape)}")
 
 
 def fused_bounce_fwd(spec, tab, desc, st, u):
     """One bounce for every ray: ``st`` packed state, ``u`` f32[10, N].
     Returns (new packed state, bits i32[N]). CUDA tensors launch the
     hand-written kernel or raise; CPU tensors take the plain version."""
-    if tuple(u.shape) != (N_UNIFORMS, st["o"].shape[1]):
-        raise ValueError(f"u: shape {tuple(u.shape)}")
+    N = st["o"].shape[1]
+    _check_u(u, N)
     if not tab.is_cuda:
         return bounce_fwd_plain(spec, tab, st, u)
-    res = _launch("fused_bounce_fwd", spec, tab, desc, st, u, None)
+    _check_state(spec, st, {"u": u, "tab": tab})
+    bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
+    out = _launch("fused_bounce_fwd", spec, tab, desc, st,
+                  [u.data_ptr(), bits.data_ptr(), N])
     fused_bounce_fwd.launches += 1
-    return res
+    return out, bits
 
 
-def fused_span_fwd(spec, tab, desc, st, u_all):
-    """``n_steps`` bounces in one kernel: ``u_all`` f32[n_steps, 10, N].
-    Returns (final packed state, bits i32[n_steps, N])."""
-    if (u_all.dim() != 3
-            or tuple(u_all.shape[1:]) != (N_UNIFORMS, st["o"].shape[1])):
-        raise ValueError(f"u_all: shape {tuple(u_all.shape)}")
+def fused_span_fwd(spec, tab, desc, st, u_all=None, seed=None, start=0,
+                   n_steps=None):
+    """``n_steps`` bounces in one kernel. Host RNG: ``u_all`` f32[n_steps,
+    10, N]. Kernel RNG: ``seed`` (an i32[2] tensor on the state's device) and
+    ``n_steps``; the kernel draws the uniforms of bounces ``start`` ..
+    ``start + n_steps - 1`` itself (Philox, csrc/philox.cuh), and no uniform
+    tensor is made; the plain version draws them with ``philox_uniforms``.
+    Exactly one of ``u_all`` or ``seed``. Returns (final packed state, bits
+    i32[n_steps, N])."""
+    N = st["o"].shape[1]
+    n_steps = _uniform_source(u_all, seed, n_steps, N)
     if not tab.is_cuda:
+        if seed is not None:
+            u_all = philox_uniforms(seed, N, start, n_steps, tab.device)
         return span_fwd_plain(spec, tab, st, u_all)
-    res = _launch("fused_span_fwd", spec, tab, desc, st, u_all,
-                  int(u_all.shape[0]))
+    _check_state(spec, st, {"tab": tab} if seed is not None
+                 else {"u": u_all, "tab": tab})
+    if seed is not None:
+        _check_seed(seed, tab.device)
+    # rays that die early leave the loop; their later bitfields are 0
+    bits = torch.zeros((n_steps, N), dtype=torch.int32, device=tab.device)
+    out = _launch("fused_span_fwd", spec, tab, desc, st,
+                  [_ptr(u_all), _ptr(seed), int(start), bits.data_ptr(), N,
+                   n_steps])
     fused_span_fwd.launches += 1
-    return res
+    return out, bits
+
+
+def fused_bounce_replay(spec, tab, desc, st, u, bits):
+    """``fused_bounce_fwd`` with its decisions replayed: the bitfield ``bits``
+    i32[N] that ``fused_bounce_fwd`` returned for ``st`` and ``u`` fixes
+    every choice it stores, and the kernel runs the bounce's arithmetic
+    without the code that makes them (the other leaves' hit tests among it).
+    A profiling kernel: its time beside ``fused_bounce_fwd``'s is the cost of
+    the decision path. Returns the new packed state, equal to
+    ``fused_bounce_fwd``'s."""
+    N = st["o"].shape[1]
+    _check_u(u, N)
+    if not tab.is_cuda:
+        return bounce_replay_plain(spec, tab, st, u, bits)
+    _check_state(spec, st, {"u": u, "tab": tab})
+    _check_bits(bits, (N,), tab.device)
+    out = _launch("fused_bounce_replay", spec, tab, desc, st,
+                  [u.data_ptr(), bits.data_ptr(), N])
+    fused_bounce_replay.launches += 1
+    return out
+
+
+def fused_bounce_io(spec, tab, desc, st, u):
+    """The loads and stores of ``fused_bounce_fwd`` and no bounce: the same
+    launch, tables in shared memory, state and uniforms read, state and a
+    bitfield written. A profiling kernel: its time is the floor under
+    ``fused_bounce_fwd``'s. Returns (the state, equal to ``st``, bits of
+    zeros)."""
+    N = st["o"].shape[1]
+    _check_u(u, N)
+    if not tab.is_cuda:
+        return bounce_io_plain(spec, tab, st, u)
+    _check_state(spec, st, {"u": u, "tab": tab})
+    bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
+    out = _launch("fused_bounce_io", spec, tab, desc, st,
+                  [u.data_ptr(), bits.data_ptr(), N], cfg=False)
+    fused_bounce_io.launches += 1
+    return out, bits
 
 
 fused_bounce_fwd.launches = 0
 fused_span_fwd.launches = 0
+fused_bounce_replay.launches = 0
+fused_bounce_io.launches = 0
 
 
 # --- the adjoint: plain versions and kernel wrappers -------------------------------
@@ -1749,9 +1939,10 @@ def span_bwd_plain(spec, tab, st0, u_all, bits, go, gd, gthr, g_rad,
 
 
 def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
-                want_replay):
+                want_replay, seed=None, start=0):
     """Shared body of the two adjoint kernel wrappers for CUDA tensors."""
-    N = _check_state(spec, st, dict(cots, u=u, tab=tab))
+    N = _check_state(spec, st, dict(cots, tab=tab) if u is None
+                     else dict(cots, u=u, tab=tab))
     _check_tables(spec, tab, desc)
     if any(k for (_t, _e, _m, k) in spec.leaves):
         raise ValueError(
@@ -1759,13 +1950,16 @@ def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
             "general_spec(spec) and the table packed for it")
     dev = tab.device
     _check_bits(bits, (N,) if n_steps is None else (n_steps, N), dev)
+    if seed is not None:
+        _check_seed(seed, dev)
     lib = _library(spec.bins, "bwd")
     outs = [torch.empty_like(cots[k]) for k in ("go", "gd", "gthr")]
     # per-block partial sums of the table cotangent, summed below
     parts = torch.empty((lib.fused_bwd_blocks(N), tab.numel()),
                         dtype=torch.float32, device=dev)
-    extra, replay = [N], None
+    extra, replay, uniforms = [N], None, [_ptr(u)]
     if n_steps is not None:
+        uniforms += [_ptr(seed), int(start)]
         # entry state of every bounce a ray enters: o d thr alive depth
         scratch = torch.empty((n_steps, 8 + spec.bins, N),
                               dtype=torch.float32, device=dev)
@@ -1779,7 +1973,7 @@ def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
         err = getattr(lib, fn_name)(
             tab.data_ptr(), tab.numel(), desc.data_ptr(), desc.numel(),
             *[st[k].data_ptr() for k in ("o", "d", "thr", "aux")],
-            u.data_ptr(), bits.data_ptr(),
+            *uniforms, bits.data_ptr(),
             *[cots[k].data_ptr() for k in ("go", "gd", "gthr", "g_rad")],
             *[t.data_ptr() for t in outs], parts.data_ptr(), *extra,
             *_cfg_args(spec), stream)
@@ -1811,24 +2005,28 @@ def fused_bounce_bwd(spec, tab, desc, o, d, thr, aux, u, bits, go, gd, gthr,
 
 
 def fused_span_bwd(spec, tab, desc, st0, u_all, bits, go, gd, gthr, g_rad,
-                   return_replay=False):
+                   return_replay=False, seed=None, start=0):
     """Adjoint of a whole span in one kernel: ``st0`` is the span's entry
-    state (o, d, thr, aux), ``u_all`` f32[n_steps, 10, N] and ``bits``
-    i32[n_steps, N] what ``fused_span_fwd`` read and wrote. Returns (go, gd,
-    gthr, table cotangent); with ``return_replay`` also the state the
-    kernel's forward replay ended in, f32[8 + B, N] (o, d, thr, alive,
-    depth), for holding it against the forward kernel's."""
+    state (o, d, thr, aux), ``bits`` i32[n_steps, N] what ``fused_span_fwd``
+    wrote, and its uniforms what it read: ``u_all`` f32[n_steps, 10, N]
+    (host RNG), or ``u_all=None`` with the ``seed`` and ``start`` it drew
+    them from (kernel RNG: the kernel draws them again, the plain version
+    with ``philox_uniforms``). Returns (go, gd, gthr, table cotangent); with
+    ``return_replay`` also the state the kernel's forward replay ended in,
+    f32[8 + B, N] (o, d, thr, alive, depth), for holding it against the
+    forward kernel's."""
     N = st0["o"].shape[1]
-    if u_all.dim() != 3 or tuple(u_all.shape[1:]) != (N_UNIFORMS, N):
-        raise ValueError(f"u_all: shape {tuple(u_all.shape)}")
+    n_steps = _uniform_source(u_all, seed, int(bits.shape[0]), N)
     st0 = {k: st0[k] for k in ("o", "d", "thr", "aux")}
     if not tab.is_cuda:
+        if seed is not None:
+            u_all = philox_uniforms(seed, N, start, n_steps, tab.device)
         return span_bwd_plain(spec, tab, st0, u_all, bits, go, gd, gthr, g_rad,
                               return_replay)
     res = _launch_bwd(
         "fused_span_bwd", spec, tab, desc, st0, u_all, bits,
         {"go": go, "gd": gd, "gthr": gthr, "g_rad": g_rad},
-        int(u_all.shape[0]), return_replay)
+        n_steps, return_replay, seed, start)
     fused_span_bwd.launches += 1
     return res
 
@@ -1878,14 +2076,33 @@ def _check_span(span):
         raise ValueError(f"span must be 'multi' or 'perbounce', got {span!r}")
 
 
-def fused_forward_span(tab, desc, spec, state, u_all, span="multi",
-                       early_exit=True):
-    """Forward fused trace of one span: ``u_all`` is [n_steps, N, >=10].
-    ``span="multi"`` runs the whole span in one ``fused_span_fwd``;
-    ``"perbounce"`` runs one ``fused_bounce_fwd`` per bounce, stopping once
-    every ray is dead when ``early_exit``. Returns RayState."""
+def _check_seeded(span, u_all):
+    """The kernel RNG: whole-span kernels only, and no uniforms beside it."""
+    if u_all is not None:
+        raise ValueError("pass exactly one of u_all (host RNG) or seed "
+                         "(kernel RNG)")
+    if span != "multi":
+        raise ValueError(
+            "the kernel RNG is drawn inside the whole-span kernels only: "
+            f"span must be 'multi', got {span!r}")
+
+
+def fused_forward_span(tab, desc, spec, state, u_all=None, span="multi",
+                       early_exit=True, seed=None, start=0, n_steps=None):
+    """Forward fused trace of one span. Host RNG: ``u_all`` is
+    [n_steps, N, >=10]; ``span="multi"`` runs the whole span in one
+    ``fused_span_fwd``, ``"perbounce"`` one ``fused_bounce_fwd`` per bounce,
+    stopping once every ray is dead when ``early_exit``. Kernel RNG: ``seed``
+    (i32[2] on the state's device), the span's first absolute bounce
+    ``start`` and ``n_steps``, on the whole-span kernel only (another
+    ``span`` raises ``ValueError``). Returns RayState."""
     _check_span(span)
     st = pack_state(state)
+    if seed is not None:
+        _check_seeded(span, u_all)
+        out, bits = fused_span_fwd(spec, tab, desc, st, seed=seed, start=start,
+                                   n_steps=n_steps)
+        return unpack_state(out, state, torch.sum(bits & 1, dtype=torch.int32))
     u_p = pack_u(u_all.to(torch.float32))
     if span == "multi":
         out, bits = fused_span_fwd(spec, tab, desc, st, u_p)
@@ -1937,43 +2154,61 @@ class _SpanPerBounce(torch.autograd.Function):
 
 class _SpanMulti(torch.autograd.Function):
     """A span as one kernel each way: ``fused_span_fwd`` keeps the entry
-    state, the uniforms and the bitfields; ``fused_span_bwd`` replays and
-    reverses the span."""
+    state, the bitfields and what the uniforms came from -- the uniforms
+    ``u_p`` (host RNG) or the i32[2] ``seed`` with the span's ``start``
+    (kernel RNG: no uniform tensor is made or kept); ``fused_span_bwd``
+    replays and reverses the span."""
 
     @staticmethod
-    def forward(ctx, tab, o, d, thr, rad, aux, u_p, spec, desc):
+    def forward(ctx, tab, o, d, thr, rad, aux, u_p, seed, start, n_steps,
+                spec, desc):
         st = {"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux}
-        out, bits = fused_span_fwd(spec, tab, desc, st, u_p)
+        out, bits = fused_span_fwd(spec, tab, desc, st, u_p, seed=seed,
+                                   start=start, n_steps=n_steps)
         seg = torch.sum(bits & 1, dtype=torch.int32)
-        ctx.spec, ctx.desc = spec, desc
-        ctx.save_for_backward(tab, o, d, thr, aux, u_p, bits)
+        ctx.spec, ctx.desc, ctx.start = spec, desc, start
+        ctx.save_for_backward(tab, o, d, thr, aux, u_p, seed, bits)
         ctx.mark_non_differentiable(out["aux"], seg)
         return out["o"], out["d"], out["thr"], out["rad"], out["aux"], seg
 
     @staticmethod
     def backward(ctx, go, gd, gthr, g_rad, _g_aux, _g_seg):
-        tab, o, d, thr, aux, u_p, bits = ctx.saved_tensors
+        tab, o, d, thr, aux, u_p, seed, bits = ctx.saved_tensors
         g_rad = g_rad.contiguous()
         go, gd, gthr, gtab = fused_span_bwd(
             ctx.spec, tab, ctx.desc, {"o": o, "d": d, "thr": thr, "aux": aux},
             u_p, bits, go.contiguous(), gd.contiguous(), gthr.contiguous(),
-            g_rad)
-        return gtab, go, gd, gthr, g_rad, None, None, None, None
+            g_rad, seed=seed, start=ctx.start)
+        return (gtab, go, gd, gthr, g_rad) + (None,) * 7
 
 
-def fused_span(tab, desc, spec, state, u_all, span="multi"):
-    """Differentiable fused trace of one span: ``u_all`` is
-    [n_steps, N, >=10], ``tab`` the table of ``pack_tabvec`` with its
-    autograd history, ``spec`` a ``general_spec``. Every bounce of the span
-    runs (no early exit). ``span`` picks the route: ``"multi"`` (one kernel
-    per span each way) or ``"perbounce"`` (one per bounce each way). The
-    entry radiance's cotangent is the exit radiance's; ``aux`` and the
+def fused_span(tab, desc, spec, state, u_all=None, span="multi", seed=None,
+               start=0, n_steps=None):
+    """Differentiable fused trace of one span: ``tab`` the table of
+    ``pack_tabvec`` with its autograd history, ``spec`` a ``general_spec``.
+    Every bounce of the span runs (no early exit). Host RNG: ``u_all`` is
+    [n_steps, N, >=10], and ``span`` picks the route: ``"multi"`` (one kernel
+    per span each way) or ``"perbounce"`` (one per bounce each way). Kernel
+    RNG: ``seed`` (i32[2] on the state's device), ``start`` and ``n_steps``,
+    on the whole-span route only (another ``span`` raises ``ValueError``).
+    The entry radiance's cotangent is the exit radiance's; ``aux`` and the
     uniforms get none; ``segments`` is not differentiable. Returns RayState."""
     _check_span(span)
     st = pack_state(state)
-    u_p = pack_u(u_all.to(torch.float32))
-    fn = _SpanMulti if span == "multi" else _SpanPerBounce
-    o, d, thr, rad, aux, seg = fn.apply(
-        tab, st["o"], st["d"], st["thr"], st["rad"], st["aux"], u_p, spec, desc)
+    if seed is not None:
+        _check_seeded(span, u_all)
+        o, d, thr, rad, aux, seg = _SpanMulti.apply(
+            tab, st["o"], st["d"], st["thr"], st["rad"], st["aux"], None,
+            seed, int(start), int(n_steps), spec, desc)
+    else:
+        u_p = pack_u(u_all.to(torch.float32))
+        if span == "multi":
+            o, d, thr, rad, aux, seg = _SpanMulti.apply(
+                tab, st["o"], st["d"], st["thr"], st["rad"], st["aux"], u_p,
+                None, 0, None, spec, desc)
+        else:
+            o, d, thr, rad, aux, seg = _SpanPerBounce.apply(
+                tab, st["o"], st["d"], st["thr"], st["rad"], st["aux"], u_p,
+                spec, desc)
     return unpack_state({"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux},
                         state, seg)

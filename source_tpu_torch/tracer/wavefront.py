@@ -197,9 +197,22 @@ def _check_device(scene, state):
             f"scene on {scene.device}, rays on {state.origin.device}")
 
 
-def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
-    """The loop over spans both tracers share: ``run_span(st, u)`` traces one
-    span of ``u.shape[0]`` bounces; between the spans of
+def _check_rng(rng, u_all, seeds):
+    if rng not in ("host", "kernel"):
+        raise ValueError(f"rng must be 'host' or 'kernel', not {rng!r}")
+    if rng == "kernel" and u_all is not None:
+        raise ValueError("u_all supplies host uniforms: it cannot go with "
+                         "rng='kernel' (inject the seeds with seeds=)")
+    if rng == "host" and seeds is not None:
+        raise ValueError("seeds= is the kernel RNG's: pass rng='kernel'")
+
+
+def _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng, seeds):
+    """The loop over spans both tracers share: ``run_span(st, start,
+    n_steps, u, seed)`` traces one span of ``n_steps`` bounces from absolute
+    bounce ``start``, with the host's uniforms ``u`` [n_steps, N, 10]
+    (``rng="host"``, ``seed`` None) or the span's i32[2] kernel seed
+    (``rng="kernel"``, ``u`` None); between the spans of
     ``cfg.compact_schedule`` the batch partitions alive-first and shrinks.
     Gathers and scatters are out of place, so autograd can follow them."""
     dev = state.origin.device
@@ -207,12 +220,19 @@ def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
     def run_range(st, start, end):
         nsteps = end - start
         n = st.origin.shape[0]
+        if rng == "kernel":
+            # one seed per span, as the reference's _kernel_seed(fold_in(
+            # key, 0x7A000 + start)); the kernel counts (lane, bounce) under it
+            seed = (seeds(start) if seeds is not None else torch.randint(
+                -2 ** 31, 2 ** 31, (2,), generator=generator,
+                dtype=torch.int32, device=dev))
+            return run_span(st, start, nsteps, None, seed)
         if u_all is not None:
             u = u_all(start, nsteps, n)
         else:
             u = torch.rand((nsteps, n, fused.N_UNIFORMS), generator=generator,
                            dtype=torch.float32, device=dev)
-        return run_span(st, u)
+        return run_span(st, start, nsteps, u, None)
 
     schedule = cfg.compact_schedule
     if not schedule:
@@ -250,7 +270,7 @@ def _trace_spans(cfg, state, run_span, generator, u_all, shifts):
 
 def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
                generator=None, u_all=None, shifts=None, span="multi",
-               route="auto"):
+               route="auto", rng="host", seeds=None):
     """Trace to termination. Returns the final RayState.
 
     ``generator`` is the ``torch.Generator`` (on the state's device) the
@@ -260,6 +280,20 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
     tests inject the reference's stream this way); ``shifts`` likewise is a
     callable ``shifts(bounces_done, alive_count)`` returning the rotation of
     the compaction stage after that many bounces.
+
+    ``rng`` is where the bounce uniforms come from: ``"host"`` (the default,
+    the reference's) draws them as above; ``"kernel"`` (the reference's
+    SOURCE_TPU_RNG=kernel) draws one i32[2] seed per span from ``generator``
+    and the whole-span kernel draws the uniforms itself with Philox, keyed by
+    the seed and counted by (lane, absolute bounce): no uniform tensor is
+    made, and the stream is ``fused.philox_uniforms``'s. ``seeds`` injects
+    the seeds instead: a callable ``seeds(start)`` returning the i32[2] of
+    the span that starts at bounce ``start``. Compaction rotations stay
+    host-drawn. The kernel RNG exists on the fused route's whole-span kernel
+    only: with ``rng="kernel"``, ``span`` other than ``"multi"`` and a scene
+    that takes the wavefront route raise ``ValueError`` -- never a silent
+    fall back to host uniforms, which the reference takes when its span mode
+    is not ``multi``.
 
     ``route="auto"`` takes the fused route for every scene it accepts and
     the wavefront route otherwise; ``route="wavefront"`` takes the wavefront
@@ -279,18 +313,29 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
     """
     if route not in ("auto", "wavefront"):
         raise ValueError(f"route must be 'auto' or 'wavefront', not {route!r}")
+    _check_rng(rng, u_all, seeds)
     _check_device(scene, state)
     tables = fused.scene_tables(scene, cfg) if route == "auto" else None
+    if rng == "kernel" and tables is None:
+        raise ValueError(
+            "rng='kernel' needs the fused route's whole-span kernel: this "
+            "scene (or route='wavefront') takes the wavefront route")
+    if rng == "kernel" and span != "multi":
+        raise ValueError(
+            f"rng='kernel' needs span='multi' (the whole-span kernel), not "
+            f"{span!r}")
     if tables is not None:
         fspec, entry = tables
         tab = fused.forward_table(scene, fspec, entry)
 
-        def run_span(st, u):
+        def run_span(st, start, n_steps, u, seed):
             return fused.fused_forward_span(tab, entry["desc"], fspec, st, u,
                                             span=span,
-                                            early_exit=cfg.early_exit)
+                                            early_exit=cfg.early_exit,
+                                            seed=seed, start=start,
+                                            n_steps=n_steps)
     else:
-        def run_span(st, u):
+        def run_span(st, start, n_steps, u, seed):
             for u_k in u:
                 if cfg.early_exit and not bool(st.alive.any()):
                     break
@@ -298,12 +343,13 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
             return st
 
     with torch.no_grad():
-        return _trace_spans(cfg, state, run_span, generator, u_all, shifts)
+        return _trace_spans(cfg, state, run_span, generator, u_all, shifts,
+                            rng, seeds)
 
 
 def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
-                    generator=None, u_all=None, shifts=None,
-                    span=DIFF_SPAN):
+                    generator=None, u_all=None, shifts=None, span=None,
+                    rng="host", seeds=None):
     """Fixed-iteration differentiable variant of ``trace_rays``: every
     bounce of every span runs (no early exit), and the returned radiance
     carries an autograd graph back to the scene's float tensors (those that
@@ -312,25 +358,43 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
     It traces the general leaf records (``fused.general_spec``): the forward
     route's world-space fast records carry other transform cotangents. The
     table is packed anew on every call, as a node of the graph; the spec and
-    the descriptor are reused. ``generator``, ``u_all``, ``shifts`` and
-    ``span`` are those of ``trace_rays``. With ``cfg.compact_schedule`` the
-    gathers and scatters between spans are differentiable, and the radiance
-    of compacted-away lanes is already final. Only the fused route is
-    differentiable so far: any other scene raises ``NotImplementedError``.
+    the descriptor are reused. ``generator``, ``u_all``, ``shifts``, ``span``,
+    ``rng`` and ``seeds`` are those of ``trace_rays``; ``span`` defaults to
+    ``DIFF_SPAN`` under the host RNG. ``rng="kernel"`` runs the whole-span
+    route (one ``fused_span_fwd`` and one ``fused_span_bwd`` per span, which
+    keeps the span's seed, not its uniforms, for the backward); an explicit
+    ``span="perbounce"`` with it raises ``ValueError``. With
+    ``cfg.compact_schedule`` the gathers and scatters between spans are
+    differentiable, and the radiance of compacted-away lanes is already
+    final. Only the fused route is differentiable so far: any other scene
+    raises ``NotImplementedError`` (``ValueError`` under ``rng="kernel"``).
     """
+    _check_rng(rng, u_all, seeds)
+    if span is None:
+        span = "multi" if rng == "kernel" else DIFF_SPAN
+    if rng == "kernel" and span != "multi":
+        raise ValueError(
+            f"rng='kernel' needs span='multi' (the whole-span kernels), not "
+            f"{span!r}")
     _check_device(scene, state)
     tables = fused.scene_tables(scene, cfg, general=True)
     if tables is None:
+        if rng == "kernel":
+            raise ValueError(
+                "rng='kernel' needs the fused route's whole-span kernels: this "
+                "scene takes the wavefront route")
         raise NotImplementedError(
             "differentiable tracing of a scene outside the fused route (the "
             "differentiable wavefront route) is not part of this package yet")
     fspec, entry = tables
     tab = fused.pack_tabvec(scene, fspec)
 
-    def run_span(st, u):
-        return fused.fused_span(tab, entry["desc"], fspec, st, u, span=span)
+    def run_span(st, start, n_steps, u, seed):
+        return fused.fused_span(tab, entry["desc"], fspec, st, u, span=span,
+                                seed=seed, start=start, n_steps=n_steps)
 
-    return _trace_spans(cfg, state, run_span, generator, u_all, shifts)
+    return _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng,
+                        seeds)
 
 
 # --- the wavefront route ---------------------------------------------------------
