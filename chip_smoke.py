@@ -11,7 +11,9 @@ against its plain PyTorch version on the card, runs the furnace checks
 the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24
 iterations, forward through ``compile_scene`` -> ``render_batch`` and the
 training step through ``render_loss_and_grads``, each once through the
-whole-span kernels and once through the per-bounce kernels, and both again
+whole-span kernels and once through the per-bounce kernels (the adjoint
+there over the live lanes binned by the counting-sort kernel, held to its
+plain version and timed with the adjoint at every bounce), and both again
 with the span kernels drawing their own uniforms (``rng="kernel"``, Philox in
 the kernel: phase ``krng``); the per-bounce kernel beside its two profiling
 variants, decisions replayed and loads and stores alone, over the flagship's
@@ -371,7 +373,8 @@ def phase_env(fused, bvh):
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
          nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
-         ptxas_bwd_b15=ptxas(logs[2]), ptxas_bvh=ptxas(logs[4]),
+         ptxas_bwd_b15=ptxas(logs[2]), ptxas_bwd_b5=ptxas(logs[3]),
+         ptxas_bvh=ptxas(logs[4]),
          ptxas_mesh=ptxas(logs[5]), libraries=len(jobs))
 
 
@@ -500,6 +503,21 @@ def torus_cots_against_f64(got, ref, r64, on, cot_scale):
     return res
 
 
+def check_binning(spec, fused, bits, where):
+    """The binning pass on one bounce's bitfield against its plain version:
+    the same live count and the same permutation of the live lanes. Returns
+    (live lanes, permutation entries that differ plus the count's
+    difference)."""
+    perm, count = fused.bin_live_lanes(spec, bits)
+    ref_perm, ref_count = fused.bin_live_lanes_plain(bits)
+    n = int(ref_count[0])
+    wrong = abs(int(count[0]) - n) + int((perm[:n] != ref_perm[:n]).sum())
+    if wrong:
+        fail(f"{where} bin_live_lanes: the permutation or the live count "
+             f"differs from its plain version ({wrong} entries)")
+    return n, wrong
+
+
 def grad_case(name, world, bins, cfg, o, d, seed, T, fused):
     """Hold fused_bounce_bwd and fused_span_bwd against their plain versions
     (and against each other) on one scene at the general spec; returns a dict
@@ -579,11 +597,23 @@ def grad_case(name, world, bins, cfg, o, d, seed, T, fused):
             fail(f"{name} fused_bounce_bwd[{k}]: table cotangent {tdev}")
         worst = {m: max(worst[m], dev.get(m, 0.0)) for m in worst}
         tab_dev = {m: max(tab_dev.get(m, 0.0), v) for m, v in tdev.items()}
+    # the binning pass that schedules fused_bounce_bwd, against its plain
+    # version: the same stable permutation, exactly, at every bounce
+    bin_rows, bin_wrong = [], 0
+    for k in range(n_steps):
+        live_k, wrong = check_binning(spec, fused, entries[k][1],
+                                      f"{name}[{k}]")
+        bin_rows.append(live_k)
+        bin_wrong += wrong
     e, bits = entries[0]
     args = (e["o"], e["d"], e["thr"], e["aux"], u_all[0], bits,
             cots["go"], cots["gd"], cots["gthr"], cots["g_rad"])
     live_n = int((bits != 0).sum())
-    ms = time_ms(lambda: fused.fused_bounce_bwd(spec, tab, desc, *args), 20)
+    # the wrapper (binning pass + kernel) and the binning pass by the device
+    # timer; the kernel alone is their difference
+    ms = device_ms(lambda: fused.fused_bounce_bwd(spec, tab, desc, *args))
+    bin_ms = device_ms(lambda: fused.bin_live_lanes(spec, bits))
+    kernel_ms = ms - bin_ms
     plain_ms = time_ms(lambda: fused.bounce_bwd_plain(spec, tab, *args), 1)
     flops = fused.bounce_bwd_flops(spec)
     table_bytes = 4 * (2 * tab.numel() + desc.numel())
@@ -591,13 +621,31 @@ def grad_case(name, world, bins, cfg, o, d, seed, T, fused):
     nbytes = table_bytes + 4 * N * (
         (8 + bins) + fused.N_UNIFORMS + 1 + (6 + 2 * bins) + (6 + bins))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, live_n * flops / F32_FLOPS * 1e3
+    # dynamic shared memory of a block: the table, the descriptor, the table
+    # cotangent and 32 ints of scan scratch (the binning pass: a count per
+    # key for each of its 4 warps, and the keys' first slots)
+    smem = 4 * (2 * tab.numel() + desc.numel() + 32)
     res["fused_bounce_bwd"] = dict(
         scene=name, n=N, bins=bins, live=live_n, **worst, table=tab_dev, ms=ms,
+        kernel_ms=kernel_ms, bin_ms=bin_ms, smem_bytes=smem,
         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes_ms=t_bytes, operations_ms=t_ops)
     if f64:
         res["fused_bounce_bwd"]["torus_lanes"] = f64
+    # the binning pass at the first bounce: bitfield in, permutation and
+    # count out; beside it one stable torch.sort of the keys (a yardstick the
+    # port never calls)
+    key = fused.adjoint_key_plain(bits)
+    key = torch.where(key < 0, fused.n_adjoint_keys(spec), key)
+    b_bytes = 4 * (N + live_n + 1)
+    res["bin_live_lanes"] = dict(
+        scene=name, n=N, live=live_n, max_abs=float(bin_wrong),
+        smem_bytes=4 * 5 * fused.n_adjoint_keys(spec),
+        by_bounce=bin_rows, ms=bin_ms,
+        plain_ms=time_ms(lambda: fused.bin_live_lanes_plain(bits), 3),
+        library_ms=device_ms(lambda: torch.sort(key, stable=True)),
+        **bound(b_bytes, 0))
 
     # --- fused_span_bwd: against the plain version, against the chain of
     # per-bounce adjoint kernels, and its replay against the forward kernel
@@ -660,8 +708,9 @@ def grad_case(name, world, bins, cfg, o, d, seed, T, fused):
         max_abs=vs_plain["max_abs"], replay_equal=True, ms=ms,
         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes_ms=t_bytes, operations_ms=t_ops,
-        scratch_bytes=4 * n_steps * (8 + bins) * N)
+        bytes_ms=t_bytes, operations_ms=t_ops, smem_bytes=smem,
+        scratch_bytes=4 * fused._library(bins, "bwd").fused_span_bwd_floats(
+            N, n_steps))
     return res
 
 
@@ -677,7 +726,8 @@ def phase_grad_kernels(T, fused, scenes):
          tolerance=dict(rtol=RTOL, atol=ATOL, max_flip=MAX_FLIP, table=TAB_TOL,
                         f64_factor=F64_FACTOR),
          fused_bounce_bwd=[cornell["fused_bounce_bwd"], zoo["fused_bounce_bwd"]],
-         fused_span_bwd=[cornell["fused_span_bwd"], zoo["fused_span_bwd"]])
+         fused_span_bwd=[cornell["fused_span_bwd"], zoo["fused_span_bwd"]],
+         bin_live_lanes=[cornell["bin_live_lanes"], zoo["bin_live_lanes"]])
     return cornell
 
 
@@ -697,8 +747,8 @@ def phase_furnace(T, scenes):
 
 
 KERNELS = ("fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
-           "fused_span_bwd", "fused_bounce_replay", "fused_bounce_io",
-           "analytic_bvh_winner", "mesh_bvh_winner")
+           "bin_live_lanes", "fused_span_bwd", "fused_bounce_replay",
+           "fused_bounce_io", "analytic_bvh_winner", "mesh_bvh_winner")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -856,8 +906,11 @@ def phase_step(T, fused, scenes):
     scene, cfg, o, d, u_fixed, same_u = flagship(T, fused, scenes)
     n = o.shape[0]
     target = torch.zeros((n, bins), device="cuda")
+    # the per-bounce route bins the live lanes before each adjoint; the
+    # whole-span kernel regroups them inside itself
     want = {"perbounce": dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
-                              fused_bounce_bwd=cfg.max_iters),
+                              fused_bounce_bwd=cfg.max_iters,
+                              bin_live_lanes=cfg.max_iters),
             "multi": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1)}
     emit_rows = [m for m, t in enumerate(scene.mat_types) if t == MAT_EMITTER]
     runs, launches, euler, peak = {}, {}, {}, {}
@@ -930,9 +983,12 @@ def phase_step(T, fused, scenes):
     state = T.init_rays(o, d, bins, spectral_dtype=cfg.spectral_dtype)
     st, u_p = fused.pack_state(state), fused.pack_u(u_fixed)
     out, bits = fused.fused_span_fwd(spec, tab, desc, st, u_p)
-    cot = [torch.zeros_like(st[k]) for k in ("o", "d", "thr")]
-    g_rad = torch.rand_like(st["rad"])
-    g_tab = torch.rand_like(tab)
+    # random non-zero cotangents: with zeros most table adds are skipped
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = [torch.randn(st[k].shape, device="cuda", generator=gen)
+           for k in ("o", "d", "thr")]
+    g_rad = torch.rand(st["rad"].shape, device="cuda", generator=gen)
+    g_tab = torch.rand(tab.shape, device="cuda", generator=gen)
 
     def per_fwd():
         cur, saved = st, []
@@ -952,18 +1008,28 @@ def phase_step(T, fused, scenes):
                                            e["thr"], e["aux"], u_p[k], b, *c,
                                            g_rad)
 
-    # the per-bounce adjoint kernel alone at a few depths of the path: its
-    # time by CUDA events beside the rays that take part
+    # the per-bounce adjoint at every bounce of the path, by the device
+    # timer, beside the rays that take part: the wrapper (binning pass and
+    # kernel), the binning pass, the kernel alone (their difference), and the
+    # forward kernel; the binning held to its plain version at each
     by_bounce = []
-    for k in (0, 1, 2, 4, 8, 16):
+    for k in range(len(saved)):
         e, b = saved[k]
+        a = (spec, tab, desc, e["o"], e["d"], e["thr"], e["aux"], u_p[k], b,
+             *cot, g_rad)
+        live_k, _ = check_binning(spec, fused, b, f"step[{k}]")
+        ms = device_ms(lambda: fused.fused_bounce_bwd(*a))
+        bin_ms = device_ms(lambda: fused.bin_live_lanes(spec, b))
         by_bounce.append(dict(
-            bounce=k, live=int((b != 0).sum()),
-            ms=time_ms(lambda: fused.fused_bounce_bwd(
-                spec, tab, desc, e["o"], e["d"], e["thr"], e["aux"], u_p[k], b,
-                *cot, g_rad), 10),
-            fwd_ms=time_ms(lambda: fused.fused_bounce_fwd(
-                spec, tab, desc, e, u_p[k]), 10)))
+            bounce=k, live=live_k, ms=ms, kernel_ms=ms - bin_ms, bin_ms=bin_ms,
+            fwd_ms=device_ms(lambda: fused.fused_bounce_fwd(
+                spec, tab, desc, e, u_p[k]))))
+    # no lane alive: the pass-through alone
+    e, b = saved[0]
+    dead = torch.zeros_like(b)
+    pass_through_ms = device_ms(lambda: fused.fused_bounce_bwd(
+        spec, tab, desc, e["o"], e["d"], e["thr"], e["aux"], u_p[0], dead,
+        *cot, g_rad))
 
     stages = dict(
         tables_ms=stage_ms(lambda: (
@@ -1004,6 +1070,8 @@ def phase_step(T, fused, scenes):
          segments_per_step_s={k: segments / v for k, v in walls.items()},
          faster=faster, default=T.tracer.wavefront.DIFF_SPAN,
          peak_bytes=peak, stages=stages, bounce_bwd_by_bounce=by_bounce,
+         bounce_bwd_sum_ms=sum(r["ms"] for r in by_bounce),
+         bounce_bwd_pass_through_ms=pass_through_ms,
          forward_render_batch_wall_ms=forward_wall_ms)
     return launches
 
@@ -1147,20 +1215,21 @@ def krng_case(name, world, bins, cfg, o, d, seed, T, fused, against_plain):
         if vs_plain["beyond"] > MAX_FLIP or not ok_plain:
             fail(f"krng {name}: K4 (kernel RNG) against its plain version "
                  f"{vs_plain} table {tab_plain}")
-        args = (spec, tab, desc, st4)
-        ms = time_ms(lambda: fused.fused_span_bwd(
-            *args, None, g_bits, *cots, seed=key), 3)
-        host_ms = time_ms(lambda: fused.fused_span_bwd(
-            *args, u_ref, g_bits, *cots), 3)
-        table_bytes = 4 * (2 * tab.numel() + desc.numel())
-        nbytes = table_bytes + 4 * n * ((8 + bins) + (6 + 2 * bins) + (6 + bins)) \
-            + 4 * entered * (1 + 2 * (8 + bins))
         row.update(vs_plain=vs_plain, table_vs_plain=tab_plain,
-                   max_abs=vs_plain["max_abs"], ms=ms, host_rng_ms=host_ms,
-                   plain_ms=plain_ms,
-                   **bound(nbytes, live * (fused.bounce_bwd_flops(spec)
-                                           + fused.bounce_flops(spec)),
-                           (entered + live) * fused.PHILOX_OPS))
+                   max_abs=vs_plain["max_abs"], plain_ms=plain_ms)
+    # K4 under both uniform sources, on every scene
+    args = (spec, tab, desc, st4)
+    ms = time_ms(lambda: fused.fused_span_bwd(
+        *args, None, g_bits, *cots, seed=key), 3)
+    host_ms = time_ms(lambda: fused.fused_span_bwd(
+        *args, u_ref, g_bits, *cots), 3)
+    table_bytes = 4 * (2 * tab.numel() + desc.numel())
+    nbytes = table_bytes + 4 * n * ((8 + bins) + (6 + 2 * bins) + (6 + bins)) \
+        + 4 * entered * (1 + 2 * (8 + bins))
+    row.update(ms=ms, host_rng_ms=host_ms,
+               **bound(nbytes, live * (fused.bounce_bwd_flops(spec)
+                                       + fused.bounce_flops(spec)),
+                       (entered + live) * fused.PHILOX_OPS))
     res["fused_span_bwd"] = row
     return res
 
@@ -1249,9 +1318,10 @@ def phase_krng(T, fused, scenes):
     want = {"kernel": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1),
             "host_multi": dict(NO_LAUNCHES, fused_span_fwd=1, fused_span_bwd=1),
             "host_perbounce": dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
-                                   fused_bounce_bwd=cfg.max_iters)}
+                                   fused_bounce_bwd=cfg.max_iters,
+                                   bin_live_lanes=cfg.max_iters)}
     kw = {"kernel": dict(rng="kernel"), "host_multi": dict(span="multi"),
-          "host_perbounce": {}}
+          "host_perbounce": dict(span="perbounce")}
     step = {}
     for route, args in kw.items():
         torch.cuda.synchronize()
@@ -2193,6 +2263,20 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
             launches=count[name], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
+    # the counting sort that schedules fused_bounce_bwd: part of K2's port
+    # (the lane schedule of _bounce_bwd_call's grid), not a second kernel
+    # ported; its time counts in K2's. max_abs_err: permutation entries and
+    # live counts that differ from the plain version, summed over the
+    # bounces. library_ms: one stable torch.sort of the keys
+    m = grad["bin_live_lanes"]
+    rows.append(dict(
+        name="bin_live_lanes", route="cuda", source=src + "fused_bwd_kernels.cu",
+        replaces="source_tpu/tracer/pallas_fused.py:1543",
+        part_of="fused_bounce_bwd",
+        launches=step_launches["perbounce"]["bin_live_lanes"],
+        max_abs_err=m["max_abs"], ms=m["ms"], plain_ms=m["plain_ms"],
+        bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+        library_ms=m["library_ms"]))
     # the span kernels' kernel-RNG branch (_gen_u of the TPU kernels)
     for name, m, count in (
             ("fused_span_fwd (kernel RNG)", krng["fused_span_fwd"],

@@ -32,18 +32,52 @@
 // true derivative as the other (chip_smoke.py holds both to a converged
 // float64 solve).
 //
-// The table cotangent is accumulated with shared-memory atomics into one
-// f32[tab_size] per block (``gtab``); float atomics add in an order that
-// changes from run to run, so the table cotangent is reproducible only to
-// summation noise.
+// The table cotangent is accumulated into one f32[tab_size] per block in
+// shared memory (``gtab``) by ``tadd``: where the active lanes of a warp add
+// to the same entry (the common case once the kernels have grouped their
+// lanes by code path) they sum with shuffles and one lane adds the sum;
+// otherwise each lane adds its own with a shared-memory atomic. Float
+// atomics add in an order that changes from run to run, so the table
+// cotangent is reproducible only to summation noise.
 #pragma once
 
 #include "fused_bounce.cuh"
 
 namespace fb {
 
+// The sum of ``x`` over the lanes of ``mask`` (every lane of ``mask`` calls
+// this), left in the lowest lane of ``mask``: a tree over the lanes' ranks
+// (E. Westphal's reduction over a peer mask), log2(popc(mask)) rounds.
+__device__ __forceinline__ float reduce_lanes(unsigned mask, float x) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(mask & ((1u << lane) - 1u));
+  unsigned above = mask & (0xfffffffeu << lane);
+  while (__any_sync(mask, above != 0u)) {
+    const int next = __ffs(above);  // 1 + the next lane above, 0 if none
+    const float y = __shfl_sync(mask, x, (next - 1) & 31);
+    if (next) x += y;
+    above &= ~__ballot_sync(mask, rank & 1);  // lanes whose sum was taken
+    rank >>= 1;
+  }
+  return x;
+}
+
+// gtab[k] += v over the calling lanes of the warp.
 __device__ __forceinline__ void tadd(float* gtab, int k, float v) {
-  if (v != 0.0f) atomicAdd(gtab + k, v);
+  const unsigned act = __activemask();
+  if (!__any_sync(act, v != 0.0f)) return;
+  const int first = __ffs(act) - 1;
+  if (__all_sync(act, k == __shfl_sync(act, k, first))) {
+    if (act == 0xffffffffu) {
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(act, v, s);
+    } else {
+      v = reduce_lanes(act, v);
+    }
+    if ((int)(threadIdx.x & 31) == first && v != 0.0f) atomicAdd(gtab + k, v);
+  } else if (v != 0.0f) {
+    atomicAdd(gtab + k, v);
+  }
 }
 __device__ __forceinline__ void acc(V3& a, V3 b) {
   a.x += b.x;

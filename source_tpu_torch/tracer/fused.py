@@ -97,6 +97,7 @@ __all__ = ["FusedSpec", "fused_spec", "general_spec", "pack_tabvec",
            "spec_descriptor", "scene_tables", "forward_table", "bounce_core",
            "fused_bounce_fwd", "fused_span_fwd", "fused_bounce_bwd",
            "fused_span_bwd", "bounce_bwd_plain", "span_bwd_plain",
+           "adjoint_key_plain", "bin_live_lanes_plain", "bin_live_lanes",
            "fused_bounce_replay", "fused_bounce_io", "bounce_replay_plain",
            "bounce_io_plain", "philox4x32", "philox_uniforms",
            "fused_forward_span", "fused_span", "build_library"]
@@ -1565,14 +1566,20 @@ def _library(bins, which="fwd"):
         else:
             # tab, n_tab, desc, n_desc, entry o d thr aux, u, (seed, start,)
             # bits, cotangents in go gd gthr g_rad, out go gd gthr, table
-            # partials, (scratch, replay_out,) N, (n_steps,) tail
-            lib.fused_bounce_bwd.argtypes = [p, i, p, i] + [p] * 14 + [i] + tail
+            # cotangent, (perm, count | scratch, replay_out, int workspace,)
+            # N, (n_steps,) tail
+            lib.fused_bounce_bwd.argtypes = [p, i, p, i] + [p] * 16 + [i] + tail
             lib.fused_span_bwd.argtypes = (
-                [p, i, p, i] + [p] * 5 + [p, i] + [p] * 9 + [p, p, i, i]
-                + tail)
-            lib.fused_bwd_blocks.argtypes = [i]
-            fns = (lib.fused_bounce_bwd, lib.fused_span_bwd,
-                   lib.fused_bwd_blocks)
+                [p, i, p, i] + [p] * 5 + [p, i] + [p] * 12 + [i, i] + tail)
+            # bits, N, n_leaves, perm, count, workspace, stream
+            lib.adjoint_bin.argtypes = [p, i, i, p, p, p, p]
+            lib.adjoint_bin_words.argtypes = [i, i]
+            lib.fused_span_bwd_words.argtypes = [i, i, i]
+            lib.fused_span_bwd_floats.argtypes = [i, i]
+            fns = (lib.fused_bounce_bwd, lib.fused_span_bwd, lib.adjoint_bin)
+            for fn in (lib.adjoint_bin_words, lib.fused_span_bwd_words,
+                       lib.fused_span_bwd_floats):
+                fn.restype = ctypes.c_longlong
         for fn in fns:
             fn.restype = i
         _libraries[(which, bins)] = lib
@@ -1847,6 +1854,75 @@ def _live_lanes(bits):
     return (bits != 0).nonzero().squeeze(1)
 
 
+# --- the adjoint kernels' schedule: live lanes binned by code path ----------------
+# The reverse pass of a bounce branches on the winner leaf (which fixes its
+# solid's type and its material's type) and on the choices the bitfield
+# stores; the adjoint kernels run lanes with one key side by side, so a warp
+# takes one code path and adds to one set of table entries.
+# csrc/fused_bwd_kernels.cu adjoint_key repeats the key.
+ADJ_KEY_BITS = 5  # transmit, TIR, light pick, exiting, checker parity
+
+
+def n_adjoint_keys(spec):
+    """Keys a live lane of ``spec`` can have: 0 for a miss, and
+    1 + (winner leaf << ADJ_KEY_BITS | branch bits) for a hit."""
+    return 1 + (len(spec.leaves) << ADJ_KEY_BITS)
+
+
+def adjoint_key_plain(bits):
+    """Plain version of the adjoint kernels' code-path key of every lane of
+    a bounce's bitfield ``bits`` i32[N]: i32[N], -1 where ``bits`` is 0 (a
+    lane that took no part has no key)."""
+    hit = ((bits >> B_HIT) & 1) != 0
+    win = (bits >> WIN_SHIFT) & 0x1FF
+    branch = (((bits >> B_TRANSMIT) & 7) | (((bits >> B_EXIT) & 1) << 3)
+              | (((bits >> B_PARITY) & 1) << 4))
+    key = torch.where(hit, 1 + (win << ADJ_KEY_BITS) + branch, 0)
+    return torch.where(bits != 0, key, -1).to(torch.int32)
+
+
+def bin_live_lanes_plain(bits):
+    """Plain version of ``bin_live_lanes``: the live lanes of ``bits``
+    stably sorted by ``adjoint_key_plain``; ``perm[count:]`` is -1."""
+    key = adjoint_key_plain(bits)
+    live = (key >= 0).nonzero().squeeze(1)
+    order = torch.sort(key[live], stable=True).indices
+    perm = torch.full_like(bits, -1, dtype=torch.int32)
+    perm[:live.numel()] = live[order].to(torch.int32)
+    return perm, torch.tensor([live.numel()], dtype=torch.int32,
+                              device=bits.device)
+
+
+def bin_live_lanes(spec, bits):
+    """The live lanes of one bounce (``bits`` i32[N] != 0) stably sorted by
+    their code-path key: (perm i32[N], whose first ``count[0]`` entries are
+    those lanes, count i32[1]); ``perm[count:]`` is unspecified. CUDA tensors
+    launch the hand-written counting sort ``adjoint_bin`` (the count stays on
+    the device: no synchronisation) or raise; CPU tensors take the plain
+    version."""
+    N = bits.shape[0] if bits.dim() == 1 else -1
+    if not bits.is_cuda:
+        return bin_live_lanes_plain(bits)
+    dev = bits.device
+    _check_bits(bits, (N,), dev)
+    lib = _library(spec.bins, "bwd")
+    n_leaves = len(spec.leaves)
+    perm = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return perm, torch.zeros((1,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    work = torch.empty((lib.adjoint_bin_words(N, n_leaves),),
+                       dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.adjoint_bin(bits.data_ptr(), N, n_leaves, perm.data_ptr(),
+                              count.data_ptr(), work.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adjoint_bin: CUDA launch failed with error {err}")
+    bin_live_lanes.launches += 1
+    return perm, count
+
+
 def bounce_bwd_plain(spec, tab, o, d, thr, aux, u, bits, go, gd, gthr, g_rad):
     """Plain PyTorch version of ``fused_bounce_bwd``: ``torch.autograd.grad``
     of ``bounce_core`` in replay mode (``bits`` given) with respect to
@@ -1954,20 +2030,27 @@ def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
         _check_seed(seed, dev)
     lib = _library(spec.bins, "bwd")
     outs = [torch.empty_like(cots[k]) for k in ("go", "gd", "gthr")]
-    # per-block partial sums of the table cotangent, summed below
-    parts = torch.empty((lib.fused_bwd_blocks(N), tab.numel()),
-                        dtype=torch.float32, device=dev)
-    extra, replay, uniforms = [N], None, [_ptr(u)]
-    if n_steps is not None:
+    # every block adds its non-zero entries of the table cotangent
+    gtab = torch.zeros_like(tab)
+    replay, uniforms = None, [_ptr(u)]
+    if n_steps is None:
+        perm, count = bin_live_lanes(spec, bits)
+        extra = [perm.data_ptr(), count.data_ptr(), N]
+    else:
         uniforms += [_ptr(seed), int(start)]
-        # entry state of every bounce a ray enters: o d thr alive depth
-        scratch = torch.empty((n_steps, 8 + spec.bins, N),
+        # the entry state of every bounce a ray enters, the staged
+        # cotangents and g_rad, each lane's in one row
+        scratch = torch.empty((lib.fused_span_bwd_floats(N, n_steps),),
                               dtype=torch.float32, device=dev)
         if want_replay:
             replay = torch.empty((8 + spec.bins, N), dtype=torch.float32,
                                  device=dev)
-        extra = [scratch.data_ptr(),
-                 replay.data_ptr() if want_replay else None, N, n_steps]
+        # keys per step, their scan, live counts, bounces entered, and each
+        # step's live lanes sorted by key
+        iw = torch.empty(
+            (lib.fused_span_bwd_words(N, n_steps, len(spec.leaves)),),
+            dtype=torch.int32, device=dev)
+        extra = [scratch.data_ptr(), _ptr(replay), iw.data_ptr(), N, n_steps]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
@@ -1975,11 +2058,11 @@ def _launch_bwd(fn_name, spec, tab, desc, st, u, bits, cots, n_steps,
             *[st[k].data_ptr() for k in ("o", "d", "thr", "aux")],
             *uniforms, bits.data_ptr(),
             *[cots[k].data_ptr() for k in ("go", "gd", "gthr", "g_rad")],
-            *[t.data_ptr() for t in outs], parts.data_ptr(), *extra,
+            *[t.data_ptr() for t in outs], gtab.data_ptr(), *extra,
             *_cfg_args(spec), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
-    res = (outs[0], outs[1], outs[2], parts.sum(0))
+    res = (outs[0], outs[1], outs[2], gtab)
     return res + (replay,) if want_replay else res
 
 
@@ -1989,8 +2072,9 @@ def fused_bounce_bwd(spec, tab, desc, o, d, thr, aux, u, bits, go, gd, gthr,
     ``o d thr aux``, its uniforms ``u`` f32[10, N] and saved ``bits`` i32[N],
     and the cotangents ``go gd gthr g_rad`` of the bounce's ``o d thr
     rad_delta``. Returns (go, gd, gthr, table cotangent f32[tab_size]). CUDA
-    tensors launch the hand-written kernel or raise; CPU tensors take the
-    plain version."""
+    tensors launch the hand-written kernel over the live lanes binned by
+    ``bin_live_lanes`` or raise; CPU tensors take the plain version, which
+    needs no binning."""
     if tuple(u.shape) != (N_UNIFORMS, o.shape[1]):
         raise ValueError(f"u: shape {tuple(u.shape)}")
     if not tab.is_cuda:
@@ -2033,6 +2117,7 @@ def fused_span_bwd(spec, tab, desc, st0, u_all, bits, go, gd, gthr, g_rad,
 
 fused_bounce_bwd.launches = 0
 fused_span_bwd.launches = 0
+bin_live_lanes.launches = 0
 
 
 # --- what wavefront.trace_rays and trace_rays_diff call ----------------------------

@@ -105,7 +105,7 @@ class RayState:
 
 # the differentiable route's default span mode: the faster of the two on an
 # NVIDIA H100 (chip_smoke.py, phase ``step``, times both)
-DIFF_SPAN = "perbounce"
+DIFF_SPAN = "multi"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
