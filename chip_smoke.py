@@ -1883,12 +1883,21 @@ def mesh_parity(name, mesh, o, d, eps, mb, mt):
     card: the lanes that choose another triangle (allowed only where the two
     candidates' t are equal to 1 ulp: a tie the strict t < t_best breaks by
     order), the largest deviations of t, u, v on the lanes that agree
-    (MESH_RTOL / MESH_ATOL), front equal. Returns (result, kernel output,
-    plain output)."""
+    (MESH_RTOL / MESH_ATOL), front equal; and against the plain version of
+    its own walk (``ordered_walk_plain``), t, tri, u, v and front equal bit
+    for bit on every lane. Returns (result, kernel output, plain output,
+    plain walk's output)."""
     N = o.shape[0]
     k = mb.mesh_bvh_winner(mesh, o, d, eps)
     torch.cuda.synchronize()
     p = mt.mesh_intersect_plain(mesh, o, d, eps)
+    w = mb.ordered_walk_plain(mesh.records.current(mesh), o, d, eps)
+    walk_differs = torch.zeros(N, dtype=torch.bool, device=o.device)
+    for key in ("t", "tri", "u", "v", "front"):
+        a, b = k[key], w[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        walk_differs |= a != b
     same = k["tri"] == p["tri"]
     lanes = torch.nonzero(~same).squeeze(1)
     tied = 0
@@ -1900,8 +1909,10 @@ def mesh_parity(name, mesh, o, d, eps, mb, mt):
                hit=float((p["tri"] >= 0).float().mean()),
                tri_differs=int(lanes.numel()), tri_differs_tied=tied,
                tri_differs_share=float(lanes.numel()) / N,
-               front_equal=bool((k["front"] == p["front"])[same].all()))
-    ok = res["front_equal"] and tied == lanes.numel()
+               front_equal=bool((k["front"] == p["front"])[same].all()),
+               walk_differs=int(walk_differs.sum()))
+    ok = (res["front_equal"] and tied == lanes.numel()
+          and res["walk_differs"] == 0)
     for key in ("t", "u", "v"):
         dev = (k[key] - p[key]).abs()[hit]
         lim = MESH_ATOL + MESH_RTOL * p[key][hit].abs()
@@ -1909,52 +1920,105 @@ def mesh_parity(name, mesh, o, d, eps, mb, mt):
         ok &= bool((dev <= lim).all())
     if not ok or not bool(torch.isfinite(k["u"]).all()):
         fail(f"{name} mesh_bvh_winner: kernel against plain version {res}")
-    return res, k, p
+    return res, k, p, w
+
+
+def fetch_stats(x):
+    """Per-ray counts: mean, p99, the largest, and the mean over 32-lane
+    warps of the warp's largest (a warp walks as long as its longest
+    lane)."""
+    x = x.float()
+    warps = torch.nn.functional.pad(x, (0, -x.numel() % 32)).view(-1, 32)
+    return dict(mean=float(x.mean()), p99=float(torch.quantile(x, 0.99)),
+                max=float(x.max()), warp_max_mean=float(warps.amax(1).mean()))
 
 
 def mesh_case(name, mesh, o, d, eps, mb, mt, orders=False):
-    """mesh_parity, then the kernel's time by CUDA events (median), the
-    wrapper's, the plain version's, visits per ray and the bound; with
-    ``orders`` also the kernel on the rays in coherence order
-    (``_coherence_order`` on the mesh's root box) and the sort itself.
+    """mesh_parity, then the kernel's device time (``device_ms``, median),
+    the wrapper's time (median by CUDA events, at the host's pace), the
+    plain version's, visits per ray and the bound; with ``orders`` also the
+    kernel on the rays in coherence order (``_coherence_order`` on the
+    mesh's root box) and the sort itself.
 
-    The bound's bytes are the rays in and the records out, and of the tables
-    only the records this run's rays read (the plain walk marks them): the
-    nodes visited, the triangles tested and those triangles' vertices."""
+    The bound is the less work of the two walks, which compute the same
+    function: bytes, the rays in and the records out, and of the tables only
+    the records this run's rays read, once each (the plain walks mark them):
+    threaded, the nodes visited (36 B), the triangles tested (12 B) and
+    their vertices (12 B); packed, the node rows (64 B, the root's 32) and
+    the triangles tested (48 B); operations, ``MESH_RAY_OPS`` a ray,
+    ``MESH_NODE_OPS`` a slab test (threaded: one a node visit; packed: one
+    at the root, two a node row) and ``MESH_TRI_OPS`` a triangle tested.
+    Each side takes the smaller of the two walks' counts (``bound_walks``).
+
+    ``layouts``: per ray, the records each walk fetches and the triangles
+    it tests, from the plain versions: the threaded walk over the SoA
+    tables (a node visit fetches from five arrays, lo, hi, skip, first and
+    count; a triangle its three vertex ids and three vertices) and the
+    kernel's walk over the packed records (a node row, 64 B, or the root's
+    half row; a leaf's triangles, 48 B each, in one range).
+    ``requested_mb``: those fetches' bytes, each rounded up to 32-B sectors
+    (threaded: 5 a node visit, at most, and 4 a triangle; packed: from
+    ``ordered_walk_plain``), a reading of the traffic the walk asks of the
+    memory system, not a bound."""
     from source_tpu_torch.tracer.analytic_bvh import _coherence_order
-    res, _, p = mesh_parity(name, mesh, o, d, eps, mb, mt)
+    res, _, p, w = mesh_parity(name, mesh, o, d, eps, mb, mt)
     N = o.shape[0]
-    res["ms"] = median_ms(lambda: mb._launch(mesh, o, d, eps), 20)
+    res["ms"] = device_ms(lambda: mb._launch(mesh, o, d, eps), 20)
     res["wrapper_ms"] = median_ms(lambda: mb.mesh_bvh_winner(mesh, o, d, eps), 20)
     if orders:
         def order():
             return _coherence_order(o, d, mesh.node_lo[0], mesh.node_hi[0])
         sort = order()
         o_s, d_s, e_s = o[sort], d[sort], eps[sort]
-        res["sorted_ms"] = median_ms(lambda: mb._launch(mesh, o_s, d_s, e_s), 20)
+        res["sorted_ms"] = device_ms(lambda: mb._launch(mesh, o_s, d_s, e_s),
+                                     20)
         res["sort_ms"] = median_ms(order, 20)
     res["plain_ms"] = run_ms(lambda: mt.mesh_intersect_plain(mesh, o, d, eps))[1]
     nv, tv = p["nodes_visited"].float(), p["tris_tested"].float()
     nodes = int(p["nodes_touched"].sum())
     tris = mesh.triangles[p["tris_touched"]]
     verts = int(torch.unique(tris).numel())
-    # node: lo, hi (6 f32), skip, first, count (3 i32); triangle: 3 i32
-    # vertex ids; vertex: 3 f32
-    table_words = 9 * nodes + 3 * tris.shape[0] + 3 * verts
-    nbytes = 4 * N * (7 + 5) + 4 * table_words
-    ops = (MESH_RAY_OPS * N + MESH_NODE_OPS * int(nv.sum())
-           + MESH_TRI_OPS * int(tv.sum()))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    rows, rec_tris = int(w["rows_touched"].sum()), int(w["tris_touched"].sum())
+    io_bytes = 4 * N * (7 + 5)
+
+    def times(nbytes, slab_tests, tris_tested):
+        ops = (MESH_RAY_OPS * N + MESH_NODE_OPS * slab_tests
+               + MESH_TRI_OPS * tris_tested)
+        return dict(bytes_ms=(io_bytes + nbytes) / HBM_BYTES_PER_S * 1e3,
+                    operations_ms=ops / F32_FLOPS * 1e3)
+
+    walks = dict(
+        # node: lo, hi (6 f32), skip, first, count (3 i32); triangle: 3 i32
+        # vertex ids; vertex: 3 f32
+        threaded=times(4 * (9 * nodes + 3 * tris.shape[0] + 3 * verts),
+                       int(nv.sum()), int(tv.sum())),
+        packed=times(64 * rows - 32 + 48 * rec_tris,
+                     2 * int(w["node_fetches"].sum()) - N,
+                     int(w["tris_tested"].sum())))
+    t_bytes = min(x["bytes_ms"] for x in walks.values())
+    t_ops = min(x["operations_ms"] for x in walks.values())
+    rec = mesh.records.current(mesh)
     res.update(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes_ms=t_bytes, operations_ms=t_ops,
+        bytes_ms=t_bytes, operations_ms=t_ops, bound_walks=walks,
         records_read=dict(nodes=nodes, triangles=int(tris.shape[0]),
-                          vertices=verts),
+                          vertices=verts, packed_rows=rows,
+                          packed_triangles=rec_tris),
         nodes_per_ray=dict(mean=float(nv.mean()),
                            p99=float(torch.quantile(nv, 0.99))),
         tris_per_ray=dict(mean=float(tv.mean()),
-                          p99=float(torch.quantile(tv, 0.99))))
+                          p99=float(torch.quantile(tv, 0.99))),
+        layouts=dict(
+            threaded=dict(
+                fetches=fetch_stats(nv + tv), tris_tested=fetch_stats(tv),
+                requested_mb=32 * float((5 * nv + 4 * tv).sum()) / 1e6),
+            packed=dict(
+                fetches=fetch_stats(w["node_fetches"] + w["leaf_fetches"]),
+                node_rows=fetch_stats(w["node_fetches"]),
+                tris_tested=fetch_stats(w["tris_tested"]),
+                requested_mb=32 * float(w["sectors"].double().sum()) / 1e6,
+                records_mb=rec.nbytes / 1e6, depth=rec.depth)))
     return res
 
 
@@ -2059,12 +2123,14 @@ def phase_mesh_kernels(T, scenes):
         mesh = MeshData(v, f, smoothing=False, closed=True).to_tables(
             eye, eye, device="cuda")
         oe, de = torch.as_tensor(oe).cuda(), torch.as_tensor(de).cuda()
-        res, k, p = mesh_parity(name, mesh, oe, de,
-                                torch.zeros(oe.shape[0], device="cuda"), mb, mt)
+        res, k, p, _ = mesh_parity(name, mesh, oe, de,
+                                   torch.zeros(oe.shape[0], device="cuda"),
+                                   mb, mt)
         leaks[name] = dict(rays=oe.shape[0],
                            kernel=int((k["tri"] < 0).sum()),
                            plain=int((p["tri"] < 0).sum()),
-                           tri_differs=res["tri_differs"])
+                           tri_differs=res["tri_differs"],
+                           walk_differs=res["walk_differs"])
         if leaks[name]["kernel"] or leaks[name]["plain"]:
             fail(f"mesh_kernels: rays aimed at edges and vertices leak: {leaks}")
     emit("mesh_kernels", tolerance=dict(rtol=MESH_RTOL, atol=MESH_ATOL,

@@ -9,8 +9,9 @@ the host (accel/bvh.py, the same native builder as the JAX package's, so both
 build the same tree) and the bundle goes to the device as ``MeshTables``.
 
 The JAX package also packs the TPU's 16-lane VMEM records and pages
-(``pack_mesh_host``/``pack_mesh_paged_host``); the CUDA kernel reads the
-plain tables, so they are not carried.
+(``pack_mesh_host``/``pack_mesh_paged_host``); they are not carried. The
+CUDA kernel reads records of its own, packed from the tables by
+``to_tables`` (tracer/mesh_bvh.py ``pack_mesh_records``).
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ class MeshData:
         def ten(x, dt=dtype):
             return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
 
-        return MeshTables(
+        tables = MeshTables(
             vertices=ten(self.vertices),
             triangles=ten(self.triangles, torch.int32),
             face_normals=ten(self.face_normals),
@@ -164,3 +165,5 @@ class MeshData:
             smoothing=self.smoothing,
             closed=self.closed,
         )
+        tables.records.current(tables)
+        return tables

@@ -12,12 +12,13 @@ Woop test (tracer/watertight.py) and the strict ``t < t_best``, so ties fall
 to the first triangle in node order.
 
 ``mesh_intersect`` is the entry point. For CUDA tensors it launches the
-hand-written kernel (tracer/mesh_bvh.py, csrc/mesh_bvh.cu) or raises; for
-CPU tensors it runs ``mesh_intersect_plain``, the same walk vectorised over
-lanes. Its gradient re-solves the Moller-Trumbore system of each ray's
-winning triangle (``_winners``), as the reference's custom VJP does: the
-walk only selects which triangle reaches the output, and the selection is
-piecewise constant.
+hand-written kernel (tracer/mesh_bvh.py, csrc/mesh_bvh.cu), whose
+nearest-child-first walk over packed records returns the same winners, or
+raises; for CPU tensors it runs ``mesh_intersect_plain``, this walk
+vectorised over lanes. Its gradient re-solves the Moller-Trumbore system of
+each ray's winning triangle (``_winners``), as the reference's custom VJP
+does: the walk only selects which triangle reaches the output, and the
+selection is piecewise constant.
 
 ``t`` is in the caller's parameter units: the local-frame direction is not
 renormalised, so local hits share the world ray parameter (mesh.pyx:1178).
@@ -36,7 +37,7 @@ from typing import Any
 import torch
 
 from ..core.math import batch as vmath
-from .mesh_bvh import mesh_bvh_winner
+from .mesh_bvh import MeshRecords, mesh_bvh_winner
 from .watertight import woop_setup, woop_tri_test
 
 __all__ = ["MeshTables", "mesh_intersect", "mesh_intersect_plain"]
@@ -47,8 +48,10 @@ _BIG = 3e38
 
 @dataclasses.dataclass
 class MeshTables:
-    """One mesh instance on a device: geometry and threaded BVH. The
-    vertices are a scene parameter (the gradient reaches them)."""
+    """One mesh instance on a device: geometry and threaded BVH, and the
+    kernel's records packed from them (``records``, a ``MeshRecords``
+    shared by copies, packed again when a table changes). The vertices
+    are a scene parameter (the gradient reaches them)."""
 
     vertices: Any  # f32[V,3] local frame
     triangles: Any  # i32[T,3] in BVH leaf order
@@ -65,6 +68,11 @@ class MeshTables:
     max_leaf: int = 4
     smoothing: bool = True
     closed: bool = False
+    records: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.records is None:
+            self.records = MeshRecords()
 
     @property
     def n_triangles(self):

@@ -21,6 +21,16 @@ for a mesh is its XLA pointer walk).
       another of the tied triangles; counted and printed), u/v within rtol
       1e-6 and atol 1.2e-7 (an ulp of the unit interval: against a u near 0
       XLA's rounding of the terms is large) on the lanes that agree.
+  (c') the kernel's records (``pack_mesh_records``): every triangle reached
+      once, leaf ranges in increasing order, each child's box and reference
+      that of the threaded BVH, the depth within the stack; the kernel's
+      walk in plain PyTorch (``ordered_walk_plain``, nearest child first
+      under the (t, triangle id) rule) bit for bit equal to the brute force
+      on every ico3 ray, with and without ``t_max``, and to
+      ``mesh_intersect_plain`` on the watertight cases, with no leak; the
+      records packed again after an in-place edit or a swap of the
+      vertices, the triangles or a BVH table; the kernel's wrapper refuses
+      CPU tensors.
   (d) no leak: the edge- and vertex-aimed rays of
       tests/test_mesh_watertight.py (the port's own copies) all hit, and
       march through the closed meshes with strictly alternating faces.
@@ -68,6 +78,7 @@ from source_tpu_torch import scenes
 from source_tpu_torch.bridge import ARRAY_FIELDS, MESH_ARRAYS, MESH_STATIC, STATIC_FIELDS
 from source_tpu_torch.optical.material import Lambert
 from source_tpu_torch.primitive import Mesh, MeshData
+from source_tpu_torch.tracer import mesh_bvh as TB
 from source_tpu_torch.tracer import meshtrace as TM
 from source_tpu_torch.tracer import watertight as TW
 from source_tpu_torch.tracer.intersect import entity_contains, intersect_scene
@@ -280,6 +291,145 @@ def test_plain_walk_counts(ico3):
     win = out["tri"].numpy()
     assert nt[0] and tr[win[win >= 0]].all()
     assert nt.sum() <= min(nv.sum(), len(nt)) and tr.sum() <= tt.sum()
+
+
+# --- (c') the kernel's records and walk ---------------------------------------------
+
+
+def test_packed_records_follow_the_threaded_bvh(ico3):
+    tt = ico3["tt"]
+    rec = tt.records.current(tt)
+    nodes, bits = rec.nodes.numpy(), rec.nodes.view(torch.int32).numpy()
+    lo, hi = tt.node_lo.numpy(), tt.node_hi.numpy()
+    skip, first = tt.node_skip.numpy(), tt.node_first.numpy()
+    count = tt.node_count.numpy()
+    leaves, deepest = [], 0
+    # (row, child slot, threaded node, depth): the root sits in row 0 slot 0
+    todo = [(0, 0, 0, 0)]
+    while todo:
+        r, c, n, depth = todo.pop()
+        col = 8 * c
+        np.testing.assert_array_equal(nodes[r, col:col + 3], lo[n])
+        np.testing.assert_array_equal(nodes[r, col + 4:col + 7], hi[n])
+        ref, cnt = bits[r, col + 3], bits[r, col + 7]
+        assert cnt == count[n]
+        if cnt > 0:
+            assert ~ref == first[n]
+            leaves.append((~ref, cnt))
+            deepest = max(deepest, depth)
+            continue
+        assert ref > 0
+        todo += [(ref, 1, skip[n + 1], depth + 1), (ref, 0, n + 1, depth + 1)]
+    assert len(leaves) == int((count > 0).sum()) == nodes.shape[0]
+    starts = np.array([f for f, _ in leaves])
+    ends = np.array([f + c for f, c in leaves])
+    # child 0 first, in DFS order: contiguous increasing ranges over all T
+    assert starts[0] == 0 and ends[-1] == tt.n_triangles
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    assert rec.depth == deepest <= TB.STACK
+    want = tt.vertices.numpy()[tt.triangles.numpy()]
+    tri = rec.tris.numpy().reshape(-1, 3, 4)
+    np.testing.assert_array_equal(tri[..., :3], want)
+    assert (tri[..., 3] == 0).all()
+    assert rec.nbytes == 4 * (nodes.size + tri.size)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+def test_ordered_walk_keeps_the_first_nearest_triangle(ico3, cut):
+    c = ico3
+    tt = c["tt"]
+    got = TB.ordered_walk_plain(
+        tt.records.current(tt), *(torch.from_numpy(c[k]) for k in (
+            "o", "d", "t_min")), torch.from_numpy(c["t_max"]) if cut else None)
+    got = {k: x.numpy() for k, x in got.items()}
+    tri_x, _, (t_x, u_x, v_x, f_x) = _brute_force(c, cut)
+    np.testing.assert_array_equal(got["tri"], tri_x)
+    hit = tri_x >= 0
+    assert np.isinf(got["t"][~hit]).all()
+    for k, x in (("t", t_x), ("u", u_x), ("v", v_x), ("front", f_x)):
+        np.testing.assert_array_equal(got[k][hit], x[hit], err_msg=k)
+    # nearest child first reads fewer records than the threaded walk
+    old = TM.mesh_intersect_plain(tt, *(torch.from_numpy(c[k]) for k in (
+        "o", "d", "t_min")), torch.from_numpy(c["t_max"]) if cut else None)
+    assert got["tris_tested"].sum() < old["tris_tested"].sum()
+    assert got["node_fetches"].sum() < old["nodes_visited"].sum()
+    assert (got["sectors"] >= got["node_fetches"]).all()
+    # the records read at least once: the root's row, no more than fetched
+    assert bool(got["rows_touched"][0])
+    assert got["rows_touched"].sum() <= got["node_fetches"].sum()
+    assert 0 < got["tris_touched"].sum() <= got["tris_tested"].sum()
+
+
+@pytest.mark.parametrize("case", ["cube", "cube_axis", "blob"])
+def test_ordered_walk_never_leaks(case):
+    name, v, f, o, d = [c for c in scenes.watertight_cases() if c[0] == case][0]
+    tables = MeshData(v, f, smoothing=False, closed=True).to_tables(IDENTITY,
+                                                                    IDENTITY)
+    o, d = torch.from_numpy(o.copy()), torch.from_numpy(d.copy())
+    t_min = torch.zeros(len(o))
+    got = TB.ordered_walk_plain(tables.records.current(tables), o, d, t_min)
+    want = TM.mesh_intersect_plain(tables, o, d, t_min)
+    assert bool((got["tri"] >= 0).all())
+    for k in ("t", "tri", "u", "v", "front"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_records_repacked_after_vertex_edit(ico3):
+    tt = ico3["tt"]
+    mesh = dataclasses.replace(tt, vertices=tt.vertices.clone(),
+                               records=TB.MeshRecords())
+    rec = mesh.records.current(mesh)
+    nodes, tris = rec.nodes, rec.tris
+    # a copy as _MeshIntersect makes it shares the records: nothing repacked
+    twin = dataclasses.replace(mesh, vertices=mesh.vertices.detach())
+    assert twin.records is rec
+    assert twin.records.current(twin).tris is tris
+    with torch.no_grad():
+        mesh.vertices[:, 0] += 0.25
+    assert rec.current(twin).tris is not tris
+    want = mesh.vertices.numpy()[mesh.triangles.numpy()]
+    np.testing.assert_array_equal(
+        rec.tris.numpy().reshape(-1, 3, 4)[..., :3], want)
+    np.testing.assert_array_equal(rec.nodes.numpy(), nodes.numpy())
+    # the original tables keep their own records
+    assert tt.records is not rec
+
+
+@pytest.mark.parametrize("table", ["triangles", "node_hi", "node_skip"])
+def test_records_repacked_after_table_edit(ico3, table):
+    tt = ico3["tt"]
+    mesh = dataclasses.replace(tt, **{table: getattr(tt, table).clone()},
+                               records=TB.MeshRecords())
+    rec = mesh.records.current(mesh)
+    nodes, tris = rec.nodes, rec.tris
+    assert rec.current(mesh).nodes is nodes
+    # an edit in place that keeps the tree valid: a triangle's vertices
+    # rotated, the root's box grown, the last node's skip link written again
+    x = getattr(mesh, table)
+    with torch.no_grad():
+        if table == "triangles":
+            x[0] = x[0].roll(1)
+        elif table == "node_hi":
+            x[0] += 1.0
+        else:
+            x[-1] = x[-1].clone()
+    assert rec.current(mesh).nodes is not nodes
+    want_n, want_t, _ = TB.pack_mesh_records(mesh)
+    # as bits: a leaf's reference ~first reads as a NaN
+    for got, want in ((rec.nodes, want_n), (rec.tris, want_t)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # swapping the table for another tensor repacks too
+    nodes = rec.nodes
+    swapped = dataclasses.replace(mesh, **{table: x.clone()})
+    assert swapped.records is rec
+    assert rec.current(swapped).nodes is not nodes
+
+
+def test_mesh_kernel_wrapper_refuses_cpu_tensors(ico3):
+    c = ico3
+    with pytest.raises(ValueError, match="CUDA"):
+        TB.mesh_bvh_winner(c["tt"], *(torch.from_numpy(c[k]) for k in (
+            "o", "d", "t_min")))
 
 
 # --- (d) watertightness --------------------------------------------------------------------
