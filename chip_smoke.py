@@ -78,6 +78,7 @@ N_FIELD = 262144
 NODE_OPS = 26
 ITEM_OPS = {0: 110, 1: 110, 2: 120, 3: 130, 4: 130, 5: 330, 6: 40, 7: 50}
 CSG_CHILD_OPS = 150  # per child: transform, interval, endpoint masks, program
+ITEM_BOX_OPS = 26    # an item's box test before its closed form (a slab test)
 # the mesh demo as benchmarks/suite.py::bench_mesh traces it (camera defaults
 # as for the CSG demo) at the demo's own camera, 512x384
 MESH = dict(bins=12, max_depth=12, max_iters=16, extinction_prob=0.01,
@@ -1513,8 +1514,20 @@ def min_advance(o):
 
 
 def bvh_case(name, scene, o, d, sort_rays, bvh):
-    """Hold the analytic-BVH kernel against its plain version on one input;
-    returns the measurements."""
+    """Hold the analytic-BVH kernel against its specification (the threaded
+    walk, ``analytic_bvh_winner_plain``) and against its own walk in torch
+    (``pruned_walk_plain``) on one input; returns the measurements: the
+    kernel's device time (``device_ms``, median), the wrapper's (by CUDA
+    events, at the host's pace) and the specification's, the work of the two
+    walks per ray in the order the kernel walks the rays (mean, p99, max,
+    mean over 32-lane warps of the warp's largest), and the bound.
+
+    The bound is the less work of the two walks, which compute the same
+    function, bytes and operations each: the rays in and the records out,
+    with the threaded walk's tables or the kernel's packed rows read once
+    each; ``NODE_OPS`` a node visit, ``ITEM_BOX_OPS`` an item box test (the
+    pruned walk), ``ITEM_OPS`` an item tested by its kind and
+    ``CSG_CHILD_OPS`` a CSG child evaluated (``bound_walks``)."""
     tables, meta = scene.leaf_bvh, scene.leaf_bvh_meta
     eps = min_advance(o)
     N = o.shape[0]
@@ -1568,35 +1581,76 @@ def bvh_case(name, scene, o, d, sort_rays, bvh):
                <= F64_FACTOR * res["torus_plain_beyond_f64"] + 1.0 / int(on.sum()))
     if not ok or not bool(torch.isfinite(k["normal"]).all()):
         fail(f"{name} analytic_bvh_winner: kernel against plain version {res}")
-    # the kernel alone, on the rays in the order it walks them
+    # the kernel alone, on the rays in the order it walks them, against its
+    # own walk in torch: winners and flags equal on every lane where none of
+    # the three chose a torus, t and normal within RTOL/ATOL there
     if sort_rays and N > bvh._TILE:
         order = bvh._coherence_order(o, d, meta[3], meta[4])
-        o_k, d_k, e_k = o[order], d[order], eps[order]
     else:
-        o_k, d_k, e_k = o, d, eps
-    ms = time_ms(lambda: bvh._launch(tables, meta, o_k, d_k, e_k), 20)
+        order = torch.arange(N, device="cuda")
+    o_k, d_k, e_k = o[order], d[order], eps[order]
+    rec = bvh.bvh_records(tables, meta)
+    kw = bvh._launch(tables, meta, o_k, d_k, e_k)
+    w = bvh.pruned_walk_plain(rec, o_k, d_k, e_k)
+    agree = torch.ones(N, dtype=torch.bool, device="cuda")
+    for key in ("leaf", "entity", "inside", "crossing_hi"):
+        agree &= kw[key] == w[key]
+    i32 = torch.int32
+    bit_equal = (agree & (kw["t"].view(i32) == w["t"].view(i32))
+                 & (kw["normal"].view(i32) == w["normal"].view(i32)).all(1))
+    off_torus = ~torus[order]
+    for x in (kw, w):
+        off_torus &= ~((x["leaf"] >= 0)
+                       & (leaf_type[x["leaf"].clamp(min=0).long()] == 5))
+    on = off_torus & agree & (w["leaf"] >= 0)
+    dtw = (kw["t"] - w["t"]).abs()
+    dnw = (kw["normal"] - w["normal"]).abs().amax(1)
+    res["against_walk"] = dict(
+        differs=int((~agree).sum()), differs_off_torus=int((~agree & off_torus).sum()),
+        not_bit_equal=int((~bit_equal).sum()),
+        max_abs=max(float(dtw[on].max()), float(dnw[on].max())) if bool(on.any()) else 0.0)
+    if (res["against_walk"]["differs_off_torus"]
+            or not bool((dtw[on] <= ATOL + RTOL * w["t"][on].abs()).all())
+            or not bool((dnw[on] <= ATOL + RTOL).all())):
+        fail(f"{name} analytic_bvh_winner: kernel against pruned_walk_plain {res}")
+    ms = device_ms(lambda: bvh._launch(tables, meta, o_k, d_k, e_k), 20)
     wrapper_ms = time_ms(lambda: bvh.winner_records(tables, meta, o, d, eps,
                                                     sort_rays), 20)
     plain_ms = time_ms(lambda: bvh.analytic_bvh_winner_plain(
         tables, meta, o, d, eps), 1)
-    table_bytes = 4 * sum(tables[t].numel() for t in ("nodes", "leaves", "csg"))
-    nbytes = 4 * N * (7 + 8) + table_bytes
-    kinds = p["kind_tests"].tolist()
-    ops = (NODE_OPS * int(p["nodes_visited"].sum())
-           + sum(ITEM_OPS[i] * kinds[i] for i in ITEM_OPS)
-           + CSG_CHILD_OPS * int(p["csg_children"]))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    nv, iv = p["nodes_visited"].float(), p["items_visited"].float()
+    io_bytes = 4 * N * (7 + 8)
+
+    def times(nbytes, ops):
+        return dict(bytes_ms=(io_bytes + nbytes) / HBM_BYTES_PER_S * 1e3,
+                    operations_ms=ops / F32_FLOPS * 1e3)
+
+    def walk_ops(walk):
+        kinds = walk["kind_tests"].tolist()
+        return (NODE_OPS * int(walk["nodes_visited"].sum())
+                + sum(ITEM_OPS[i] * kinds[i] for i in ITEM_OPS)
+                + CSG_CHILD_OPS * int(walk["csg_children"].sum()))
+
+    walks = dict(
+        threaded=times(4 * sum(tables[t].numel() for t in ("nodes", "leaves", "csg")),
+                       walk_ops(p)),
+        pruned=times(4 * sum(x.numel() for x in (rec.nodes, rec.items, rec.children)),
+                     walk_ops(w) + ITEM_BOX_OPS * int(w["box_tests"].sum())))
+    t_bytes = min(x["bytes_ms"] for x in walks.values())
+    t_ops = min(x["operations_ms"] for x in walks.values())
     res.update(
         ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes_ms=t_bytes, operations_ms=t_ops,
-        nodes_per_ray=dict(mean=float(nv.mean()),
-                           p99=float(torch.quantile(nv, 0.99))),
-        items_per_ray=dict(mean=float(iv.mean()),
-                           p99=float(torch.quantile(iv, 0.99))),
-        item_tests_by_kind=kinds, n_nodes=int(meta[0]))
+        bytes_ms=t_bytes, operations_ms=t_ops, bound_walks=walks,
+        work=dict(
+            threaded={key: fetch_stats(p[key][order]) for key in
+                      ("nodes_visited", "items_visited", "csg_children")},
+            pruned={key: fetch_stats(w[key]) for key in
+                    ("nodes_visited", "box_tests", "items_visited",
+                     "csg_children")}),
+        item_tests_by_kind=dict(threaded=p["kind_tests"].tolist(),
+                                pruned=w["kind_tests"].tolist()),
+        n_nodes=int(meta[0]), records_bytes=rec.nbytes)
     return res
 
 

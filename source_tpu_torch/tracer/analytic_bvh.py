@@ -19,15 +19,26 @@ they enter, instead of every leaf. The items are
 ``pack_leaf_bvh_host`` builds the tables on the host: row-major node
 records f32[n_nodes, 9] (AABB, skip, first, count), item records
 f32[n_items, 23] and CSG rows f32[n_csg, 127], the same tables the JAX
-package builds. ``analytic_bvh_winner`` is the entry point: for CUDA tensors
-it launches the hand-written kernel ``analytic_bvh_winner``
+package builds, plus each item's padded box and each CSG item's box
+tightened by its program. ``analytic_bvh_winner`` is the entry point: for
+CUDA tensors it launches the hand-written kernel ``analytic_bvh_winner``
 (csrc/analytic_bvh.cu, one ray per thread, a stackless walk along the skip
 pointers) or raises; for CPU tensors it runs ``analytic_bvh_winner_plain``,
-the same walk vectorised over lanes with one node pointer per lane. Both
-keep the reference's node order and its strict ``t < t_best`` update, so
-ties fall as in the reference. The winner is an argmin, piecewise constant:
-nothing here carries a gradient (the differentiable path recomputes the
-winner's crossing, tracer/intersect.py).
+the specification: the same walk vectorised over lanes with one node pointer
+per lane. Both keep the reference's node order and its strict
+``t < t_best`` update, so ties fall as in the reference. The winner is an
+argmin, piecewise constant: nothing here carries a gradient (the
+differentiable path recomputes the winner's crossing, tracer/intersect.py).
+
+The kernel reads records packed from the tables on their device
+(``pack_bvh_records``, kept by ``bvh_records`` until a table changes): node
+and item rows of float4s, the item's box in its row (a CSG item's program as
+its truth table), and CSG children in rows of their own. It tests an item
+only where the ray enters the item's box, and resolves a CSG item from the
+truth table; a skipped item cannot win under the strict rule, so the
+winners stay the threaded walk's. ``pruned_walk_plain`` is that walk in
+torch, with its work per ray, for holding the kernel to it lane by lane;
+the main path does not run it.
 
 The torus is a BVH type (its quartic is the fused kernel's); a torus child
 still sends its CSG entity to the streaming resolve, since a torus can meet
@@ -50,12 +61,14 @@ from ..primitive.analytic import (
     TYPE_SPHERE,
     TYPE_TORUS,
 )
+from ..primitive.shapes import OP_INTERSECT, OP_LEAF, OP_UNION
 from . import fused as _f
 
 __all__ = ["BVH_TYPES", "CSG_CHILD_TYPES", "KT_SPHERE_W", "KT_BOX_W",
-           "KT_CSG", "MAX_CSG_CHILD", "pack_leaf_bvh_host",
+           "KT_CSG", "MAX_CSG_CHILD", "BvhRecords", "pack_leaf_bvh_host",
+           "pack_bvh_records", "bvh_records", "truth_table",
            "analytic_bvh_winner", "analytic_bvh_winner_plain",
-           "build_library"]
+           "pruned_walk_plain", "build_library"]
 
 # types the kernel evaluates inline
 BVH_TYPES = (TYPE_SPHERE, TYPE_BOX, TYPE_CYLINDER, TYPE_CONE, TYPE_PARABOLA,
@@ -81,10 +94,6 @@ _TILE = 1024
 # csg table row: [n_children | child0 (gid + 12 w2l + 8 params) | child1 ...]
 _CSG_CHILD_FIELDS = 21
 _CSG_ROW = 1 + MAX_CSG_CHILD * _CSG_CHILD_FIELDS
-# kernel signature record (int32): [n_children, n_ops, child types x6,
-# (op, arg) x 12]; csrc/analytic_bvh.cu repeats it
-_SIG_WORDS = 32
-_MAX_OPS = 12
 
 
 def _local_aabb(type_id, p):
@@ -113,6 +122,44 @@ def _world_aabb(type_id, l2w, params):
     return wc.min(axis=0), wc.max(axis=0)
 
 
+def _padded(lo, hi):
+    """World AABBs (f64[..., 3]) widened by 1e-6 of their largest coordinate
+    magnitude (at least 1e-6), as f32: the boxes the BVH is built over."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    pad = 1e-6 * np.maximum(
+        1.0, np.maximum(np.abs(lo), np.abs(hi)).max(axis=-1, keepdims=True))
+    return (lo - pad).astype(np.float32), (hi + pad).astype(np.float32)
+
+
+def _program_box(program, boxes):
+    """A box holding the solid of a postfix CSG ``program`` over its
+    children's boxes ((lo, hi) per local child position): an intersection
+    takes the boxes' intersection, a subtraction its left operand's box, a
+    union the boxes' union. f32[6] (lo, hi); NaN where the solid is empty,
+    a box that every slab test rejects."""
+    stack = []
+    for op, arg in program:
+        if op == OP_LEAF:
+            stack.append(boxes[arg])
+            continue
+        b = stack.pop()
+        a = stack.pop()
+        if op == OP_UNION:
+            box = (a if b is None else b if a is None else
+                   (np.minimum(a[0], b[0]), np.maximum(a[1], b[1])))
+        elif op == OP_INTERSECT:
+            box = (None if a is None or b is None else
+                   (np.maximum(a[0], b[0]), np.minimum(a[1], b[1])))
+            if box is not None and (box[0] > box[1]).any():
+                box = None
+        else:  # OP_SUBTRACT
+            box = a
+        stack.append(box)
+    if stack[0] is None:
+        return np.full(6, np.nan, np.float32)
+    return np.concatenate(stack[0]).astype(np.float32)
+
+
 def pack_leaf_bvh_host(leaf_types, l2w, w2l, params, leaf_ids,
                        leaf_entities=None, max_leaf=4, csg_items=()):
     """SAH BVH over the world AABBs of the given items plus BVH-ordered
@@ -125,10 +172,14 @@ def pack_leaf_bvh_host(leaf_types, l2w, w2l, params, leaf_ids,
     children = [(gid, type_id, l2w, w2l, params), ...], at most
     MAX_CSG_CHILD convex children; the boolean solid is ONE BVH item.
 
-    Returns (tables dict of f32 numpy arrays "nodes", "leaves", "csg", meta)
-    or (None, None) when ineligible; meta = (n_nodes, max_leaf,
-    present_types, root_lo, root_hi, present_orig, csg_sigs), csg_sigs the
-    distinct (program, child_types) signatures.
+    Returns (tables dict of f32 numpy arrays "nodes", "leaves", "csg",
+    "item_box", "csg_box", meta) or (None, None) when ineligible; meta =
+    (n_nodes, max_leaf, present_types, root_lo, root_hi, present_orig,
+    csg_sigs), csg_sigs the distinct (program, child_types) signatures.
+    "item_box" f32[n_items, 6] holds the padded boxes the BVH is built over
+    (lo, hi), in BVH row order; "csg_box" f32[n_csg, 6] a tighter box of
+    each CSG row, its program over the children's padded boxes
+    (``_program_box``). The kernel's records test them per item.
     """
     from ..accel.bvh import build_bvh
 
@@ -151,15 +202,13 @@ def pack_leaf_bvh_host(leaf_types, l2w, w2l, params, leaf_ids,
     csg_sigs = []
     csg_rows = np.zeros((max(1, n_csg), _CSG_ROW), np.float64)
     csg_rec = np.zeros((max(1, n_csg), 3), np.float64)  # row, sig, entity
+    csg_box = np.zeros((max(1, n_csg), 6), np.float32)
     for j, (entity_id, program, children) in enumerate(csg_items):
-        clo = None
-        chi = None
-        for (gid, tid, cl2w, cw2l, cp) in children:
-            a, b = _world_aabb(tid, cl2w, cp)
-            clo = a if clo is None else np.minimum(clo, a)
-            chi = b if chi is None else np.maximum(chi, b)
-        lo[n + j] = clo
-        hi[n + j] = chi
+        boxes = [_world_aabb(tid, cl2w, cp) for (_g, tid, cl2w, _w, cp)
+                 in children]
+        lo[n + j] = np.min([a for a, _b in boxes], axis=0)
+        hi[n + j] = np.max([b for _a, b in boxes], axis=0)
+        csg_box[j] = _program_box(program, [_padded(a, b) for a, b in boxes])
         key = (tuple(program), tuple(int(c[1]) for c in children))
         if key not in sig_index:
             sig_index[key] = len(csg_sigs)
@@ -172,9 +221,8 @@ def pack_leaf_bvh_host(leaf_types, l2w, w2l, params, leaf_ids,
             csg_rows[j, base + 13: base + 21] = np.asarray(cp)[:8]
         csg_rec[j] = (j, sig_index[key], entity_id)
 
-    pad = 1e-6 * np.maximum(1.0, np.abs(np.stack([lo, hi])).max(axis=(0, 2)))
-    bvh = build_bvh((lo - pad[:, None]).astype(np.float32),
-                    (hi + pad[:, None]).astype(np.float32), max_leaf=max_leaf)
+    box_lo, box_hi = _padded(lo, hi)
+    bvh = build_bvh(box_lo, box_hi, max_leaf=max_leaf)
     order = np.asarray(bvh.order)
 
     w2l_a = (np.asarray(w2l, np.float64).reshape(n, 4, 4)
@@ -234,7 +282,9 @@ def pack_leaf_bvh_host(leaf_types, l2w, w2l, params, leaf_ids,
          bvh.node_count.astype(np.float64)], axis=1)
     tables = {"nodes": nodes.astype(np.float32),
               "leaves": leaves.astype(np.float32),
-              "csg": csg_rows.astype(np.float32)}
+              "csg": csg_rows.astype(np.float32),
+              "item_box": np.concatenate([box_lo, box_hi], 1)[order],
+              "csg_box": csg_box}
     present = tuple(sorted({int(t) for t in types_o}))
     # the differentiable winner recompute dispatches on the ORIGINAL
     # analytic types (children included), not the kernel's record codes
@@ -524,9 +574,9 @@ def analytic_bvh_winner_plain(tables, meta, origin, direction, t_min):
     """Plain PyTorch version of the kernel: the stackless walk vectorised
     over lanes, one node pointer per lane. Returns the raw per-ray records
     (t, leaf, entity, inside, normal, crossing_hi as the kernel writes
-    them) plus ``nodes_visited`` and ``items_visited`` per ray, the item
-    tests by record kind (``kind_tests``, i64[9]) and the CSG children they
-    evaluated (``csg_children``)."""
+    them) plus ``nodes_visited``, ``items_visited`` and the CSG children
+    evaluated (``csg_children``) per ray, and the item tests by record kind
+    (``kind_tests``, i64[9])."""
     nodes, leaves, csg = tables["nodes"], tables["leaves"], tables["csg"]
     n_nodes, max_leaf, present = meta[:3]
     csg_sigs = meta[6] if len(meta) > 6 else ()
@@ -545,7 +595,7 @@ def analytic_bvh_winner_plain(tables, meta, origin, direction, t_min):
     nodes_visited = torch.zeros(N, dtype=torch.int32, device=dev)
     items_visited = torch.zeros(N, dtype=torch.int32, device=dev)
     kind_tests = torch.zeros(KT_CSG + 1, dtype=torch.int64, device=dev)
-    csg_children = torch.zeros((), dtype=torch.int64, device=dev)
+    csg_children = torch.zeros(N, dtype=torch.int32, device=dev)
     while True:
         act = torch.nonzero(node < n_nodes).squeeze(1)
         if act.numel() == 0:
@@ -581,8 +631,8 @@ def analytic_bvh_winner_plain(tables, meta, origin, direction, t_min):
                 ln = lanes[m]
                 kind_tests[kind] += m.sum()
                 if kind == KT_CSG:
-                    csg_children += csg[rows[m][:, 0].to(torch.int64), 0].sum(
-                        dtype=torch.int64)
+                    csg_children[ln] += csg[rows[m][:, 0].to(torch.int64),
+                                            0].to(torch.int32)
                 t, i_, n, g, h = _test_items(
                     kind, rows[m], [x[ln] for x in o_all],
                     [x[ln] for x in d_all], t_min[ln],
@@ -604,11 +654,309 @@ def analytic_bvh_winner_plain(tables, meta, origin, direction, t_min):
             "csg_children": csg_children}
 
 
+# --- the kernel's records -----------------------------------------------------
+# Packed from the tables above, on their device, at first launch. Integers in
+# a row are int32 bits (a float's bits in an f32 row).
+#
+#   node row  f32[8]   lo xyz, skip | hi xyz, first << 8 | count
+#   item row  f32[32]  box lo xyz, type | box hi xyz, entity | the item's
+#                      record of "leaves" (23 words); for a CSG item its
+#                      first four words are first child row, child count,
+#                      truth table low word, high word | 0
+#   child row f32[24]  w2l rows (12), params (8), global leaf id, type, 0, 0
+#                      (MAX_CSG_CHILD rows per CSG table row)
+#
+# The truth table holds the program's value at every state of the children:
+# bit s is the solid's containment when child k's containment is bit k of s.
+
+NODE_W, ITEM_W, CHILD_W = 8, 32, 24
+_REC = 8  # where the item's record of "leaves" starts in its row
+_RECORDS_KEPT = 8
+_records = {}  # key of the tables -> (BvhRecords, the tables' tensors)
+
+
+def _bits(x):
+    """Integers as the bits of float32 values."""
+    return x.to(torch.int32).view(torch.float32)
+
+
+def truth_table(program, n_children):
+    """The program's value at all 2**n_children states, as the 64-bit word
+    whose bit s is the solid's containment when child k's is bit k of s."""
+    s = torch.arange(1 << n_children)
+    states = ((s[:, None] >> torch.arange(n_children)) & 1).bool()
+    inside = _program_to_closure(program)(states)
+    return sum(1 << int(i) for i in torch.nonzero(inside).flatten())
+
+
+class BvhRecords:
+    """The kernel's records of one set of BVH tables (layout above):
+    ``nodes``, ``items`` and ``children``, f32."""
+
+    def __init__(self, nodes, items, children):
+        self.nodes, self.items, self.children = nodes, items, children
+
+    @property
+    def nbytes(self):
+        return 4 * sum(x.numel() for x in (self.nodes, self.items,
+                                           self.children))
+
+
+def pack_bvh_records(tables, meta):
+    """The records of ``tables`` (a dict of ``pack_leaf_bvh_host``'s f32
+    tables as tensors) in plain torch on their device. An item is tested
+    against "item_box" (a CSG item against its "csg_box"); tables without
+    them (the JAX package's) give each item its leaf node's box."""
+    nodes, leaves, csg = tables["nodes"], tables["leaves"], tables["csg"]
+    dev = nodes.device
+    i32 = torch.int32
+    n_items = leaves.shape[0]
+    count = nodes[:, 8].to(i32)
+    first = nodes[:, 7].to(i32)
+    if int(count.max()) > 255 or n_items >= (1 << 23):
+        raise ValueError("BVH leaves too large for the kernel's node rows")
+    node_rows = torch.cat([nodes[:, 0:3], _bits(nodes[:, 6])[:, None],
+                           nodes[:, 3:6], _bits((first << 8) | count)[:, None]],
+                          1)
+    box = tables.get("item_box")
+    if box is None:
+        leaf = torch.nonzero(count > 0).squeeze(1)
+        per = count[leaf].long()
+        item = (torch.repeat_interleave(first[leaf].long(), per)
+                + torch.arange(int(per.sum()), device=dev)
+                - torch.repeat_interleave(torch.cumsum(per, 0) - per, per))
+        box = torch.empty((n_items, 6), dtype=torch.float32, device=dev)
+        box[item] = nodes[torch.repeat_interleave(leaf, per), :6]
+    box = box.clone()
+    kind = leaves[:, 20].to(i32)
+    is_csg = torch.nonzero(kind == KT_CSG).squeeze(1)
+    row = leaves[is_csg, 0].long()
+    sig = leaves[is_csg, 1].long()
+    if "csg_box" in tables and is_csg.numel():
+        box[is_csg] = tables["csg_box"][row]
+    # per signature, on the host from its program: child count and truth
+    # table (three words), and the children's types
+    csg_sigs = meta[6] if len(meta) > 6 else ()
+    sig_words = np.zeros((max(1, len(csg_sigs)), 3), np.uint32)
+    child_types = np.zeros((max(1, len(csg_sigs)), MAX_CSG_CHILD), np.int32)
+    for s, (program, types) in enumerate(csg_sigs):
+        if len(types) > MAX_CSG_CHILD:
+            raise ValueError(f"CSG signature {s} exceeds the kernel's limits")
+        tt = truth_table(program, len(types))
+        sig_words[s] = (len(types), tt & 0xFFFFFFFF, tt >> 32)
+        child_types[s, :len(types)] = types
+    # child rows: MAX_CSG_CHILD per CSG table row
+    kids = csg[:, 1:].reshape(-1, MAX_CSG_CHILD, _CSG_CHILD_FIELDS)
+    ktype = torch.zeros(kids.shape[:2], dtype=i32, device=dev)
+    ktype[row] = torch.as_tensor(child_types, device=dev)[sig]
+    children = torch.cat([kids[..., 1:21], _bits(kids[..., 0])[..., None],
+                          _bits(ktype)[..., None],
+                          torch.zeros(kids.shape[:2] + (2,), device=dev)], 2)
+    items = torch.zeros((n_items, ITEM_W), dtype=torch.float32, device=dev)
+    items[:, 0:3] = box[:, 0:3]
+    items[:, 3] = _bits(kind)
+    items[:, 4:7] = box[:, 3:6]
+    items[:, 7] = _bits(leaves[:, 22])
+    items[:, _REC:_REC + 23] = leaves
+    items[is_csg, _REC] = _bits(row * MAX_CSG_CHILD)
+    items[is_csg, _REC + 1:_REC + 4] = _bits(torch.as_tensor(
+        sig_words.view(np.int32), device=dev)[sig])
+    return BvhRecords(node_rows.contiguous(), items,
+                      children.reshape(-1, CHILD_W).contiguous())
+
+
+_PACKED_FROM = ("nodes", "leaves", "csg", "item_box", "csg_box")
+
+
+def bvh_records(tables, meta):
+    """The records of ``tables``, packed at first use and again whenever a
+    table they came from has been swapped, moved or edited in place (keyed
+    on each tensor's ``data_ptr()``, ``_version`` and shape; an edit through
+    ``tensor.data`` is not seen). The last few sets are kept, each with its
+    tables, so no other tensor can take their memory while the key lives."""
+    src = [tables[k] for k in _PACKED_FROM if k in tables]
+    key = (meta[0], meta[6] if len(meta) > 6 else (),
+           *[(x.device, x.data_ptr(), x._version, tuple(x.shape)) for x in src])
+    hit = _records.pop(key, None)
+    if hit is None:
+        hit = (pack_bvh_records(tables, meta), src)
+        while len(_records) >= _RECORDS_KEPT:
+            _records.pop(next(iter(_records)))
+    _records[key] = hit
+    return hit[0]
+
+
+def _slab_hit(lo, hi, o, inv, t_best):
+    """The walk's slab test per lane over component lists: the box is
+    entered no later than it is left, not behind the ray, and strictly
+    before t_best."""
+    t0 = [(lo[k] - o[k]) * inv[k] for k in range(3)]
+    t1 = [(hi[k] - o[k]) * inv[k] for k in range(3)]
+    tnear = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                        torch.minimum(t0[1], t1[1])),
+                          torch.minimum(t0[2], t1[2]))
+    tfar = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                       torch.maximum(t0[1], t1[1])),
+                         torch.maximum(t0[2], t1[2]))
+    return (tfar >= torch.clamp(tnear, min=0.0)) & (tnear < t_best)
+
+
+def _csg_resolve(rows, children, o, d, t_min):
+    """The kernel's CSG resolve on the lanes of ``rows`` (their item rows):
+    the children's intervals, then the truth table looked up just before and
+    just after each endpoint. (t, inside, world normal, global leaf id,
+    crossing index, child count)."""
+    i32 = torch.int32
+    rb = rows.view(i32)
+    first = rb[:, _REC].long()
+    n_kids = rb[:, _REC + 1]
+    tt = (rb[:, _REC + 3].long() << 32) | (rb[:, _REC + 2].long() & 0xFFFFFFFF)
+    L = int(n_kids.max())
+    # each child's interval, (BIG, -BIG) where the ray misses it (or the
+    # item has fewer children): it contains no point, and its endpoints
+    # are never after t_min and before t_b
+    ivals = []
+    for c in range(L):
+        lo = torch.full_like(o[0], _BIG)
+        hi = torch.full_like(o[0], -_BIG)
+        lanes = torch.nonzero(n_kids > c).squeeze(1)
+        ch = children[first[lanes] + c]
+        ctype = ch.view(i32)[:, 21]
+        for tid in torch.unique(ctype).tolist():
+            m = ctype == tid
+            ln, chm = lanes[m], ch[m]
+            _m, lo_l, ld_l = _f._leaf_local(lambda k: chm[:, k], 0,
+                                            [x[ln] for x in o],
+                                            [x[ln] for x in d])
+            a, b, ok = _IVAL_FNS[tid](lo_l, ld_l,
+                                      [chm[:, 12 + k] for k in range(8)])
+            lo[ln] = torch.where(ok, a, _BIG)
+            hi[ln] = torch.where(ok, b, -_BIG)
+        ivals.append((lo, hi))
+    t_b = torch.full_like(o[0], _BIG)
+    win_c = torch.zeros_like(n_kids)
+    ishi_b = torch.zeros_like(n_kids)
+    inside_b = torch.zeros_like(o[0], dtype=torch.bool)
+    for c in range(L):
+        for kind in (0, 1):
+            e = ivals[c][kind]
+            sb = sum(((lo < e) & (e <= hi)).long() << k
+                     for k, (lo, hi) in enumerate(ivals))
+            sa = sum(((lo <= e) & (e < hi)).long() << k
+                     for k, (lo, hi) in enumerate(ivals))
+            pb = ((tt >> sb) & 1) > 0
+            pa = ((tt >> sa) & 1) > 0
+            better = (e > t_min) & (pb != pa) & (e < t_b)
+            t_b = torch.where(better, e, t_b)
+            win_c = torch.where(better, c, win_c)
+            ishi_b = torch.where(better, kind, ishi_b)
+            inside_b = torch.where(better, pb, inside_b)
+    # the winning child's outward normal at the crossing
+    t_sn = torch.where(t_b < 1e30, t_b, 0.0)
+    pw = (o[0] + t_sn * d[0], o[1] + t_sn * d[1], o[2] + t_sn * d[2])
+    w = children[first + win_c]
+    wtype = w.view(i32)[:, 21]
+    n = [torch.zeros_like(t_b) for _ in range(3)]
+    for tid in torch.unique(wtype).tolist():
+        mc = wtype == tid
+        m = [w[:, k] for k in range(12)]
+        ph = (m[0] * pw[0] + m[1] * pw[1] + m[2] * pw[2] + m[3],
+              m[4] * pw[0] + m[5] * pw[1] + m[6] * pw[2] + m[7],
+              m[8] * pw[0] + m[9] * pw[1] + m[10] * pw[2] + m[11])
+        nw = _to_world(m, _n_local(tid, ph, [w[:, 12 + k] for k in range(8)]))
+        n = [torch.where(mc, a, b) for a, b in zip(nw, n)]
+    return t_b, inside_b, n, w.view(i32)[:, 20], ishi_b, n_kids
+
+
+def pruned_walk_plain(records, origin, direction, t_min):
+    """The kernel's walk in plain PyTorch over its records: the threaded
+    walk of ``analytic_bvh_winner_plain``, where an item is tested only if
+    the ray enters its box under the node's rule, and a CSG item is resolved
+    from its truth table. Returns the same records as that function, and per
+    ray the nodes visited (``nodes_visited``), the item boxes tested
+    (``box_tests``: the items the threaded walk tests), the items tested
+    (``items_visited``) and the CSG children evaluated (``csg_children``);
+    ``kind_tests`` i64[9] the items tested by record kind. A skipped item
+    cannot win under the strict ``t < t_best`` and the tested items keep
+    their order, so its winners are the threaded walk's."""
+    i32 = torch.int32
+    nodes, items, children = records.nodes, records.items, records.children
+    nb = nodes.view(i32)
+    skip_all = nb[:, 3].long()
+    first_all = (nb[:, 7] >> 8).long()
+    count_all = (nb[:, 7] & 255).long()
+    n_nodes, max_leaf = nodes.shape[0], int(count_all.max())
+    N = origin.shape[0]
+    dev = origin.device
+    o_all = origin.unbind(1)
+    d_all = direction.unbind(1)
+    inv_all = [_safe_inv(x) for x in d_all]
+    node = torch.zeros(N, dtype=torch.int64, device=dev)
+    t_best = torch.full((N,), _BIG, dtype=origin.dtype, device=dev)
+    leaf = torch.full((N,), -1, dtype=i32, device=dev)
+    ent = torch.full((N,), -1, dtype=i32, device=dev)
+    ins = torch.zeros(N, dtype=torch.bool, device=dev)
+    nrm = torch.zeros((N, 3), dtype=origin.dtype, device=dev)
+    ishi = torch.zeros(N, dtype=i32, device=dev)
+    counts = {k: torch.zeros(N, dtype=i32, device=dev) for k in
+              ("nodes_visited", "box_tests", "items_visited", "csg_children")}
+    kind_tests = torch.zeros(KT_CSG + 1, dtype=torch.int64, device=dev)
+    while True:
+        act = torch.nonzero(node < n_nodes).squeeze(1)
+        if act.numel() == 0:
+            break
+        counts["nodes_visited"][act] += 1
+        nd = nodes[node[act]]
+        lane_hit = _slab_hit(nd[:, 0:3].unbind(1), nd[:, 4:7].unbind(1),
+                             [x[act] for x in o_all],
+                             [x[act] for x in inv_all], t_best[act])
+        skip, first, count = (x[node[act]] for x in (skip_all, first_all,
+                                                     count_all))
+        for k in range(max_leaf):
+            sel = lane_hit & (k < count)
+            if not bool(sel.any()):
+                continue
+            lanes = act[sel]
+            rows = items[first[sel] + k]
+            counts["box_tests"][lanes] += 1
+            enter = _slab_hit(rows[:, 0:3].unbind(1), rows[:, 4:7].unbind(1),
+                              [x[lanes] for x in o_all],
+                              [x[lanes] for x in inv_all], t_best[lanes])
+            lanes, rows = lanes[enter], rows[enter]
+            counts["items_visited"][lanes] += 1
+            typ = rows.view(i32)[:, 3]
+            for kind in torch.unique(typ).tolist():
+                m = typ == kind
+                ln = lanes[m]
+                kind_tests[kind] += m.sum()
+                o, d = [x[ln] for x in o_all], [x[ln] for x in d_all]
+                if kind == KT_CSG:
+                    t, i_, n, g, h, l = _csg_resolve(rows[m], children, o, d,
+                                                     t_min[ln])
+                    counts["csg_children"][ln] += l
+                else:
+                    t, i_, n, g, h = _test_items(
+                        kind, rows[m][:, _REC:], o, d, t_min[ln],
+                        [x[ln] for x in inv_all], None, ())
+                better = t < t_best[ln]
+                up = ln[better]
+                t_best[up] = t[better]
+                leaf[up] = g[better]
+                ent[up] = rows[m][better].view(i32)[:, 7]
+                ins[up] = i_[better]
+                nrm[up] = torch.stack(n, dim=1)[better].to(nrm.dtype)
+                ishi[up] = h[better]
+        node[act] = torch.where(lane_hit & (count == 0), node[act] + 1, skip)
+    inv_len = torch.rsqrt((nrm * nrm).sum(1, keepdim=True) + 1e-24)
+    return {"t": t_best, "leaf": leaf, "entity": ent,
+            "inside": ins.to(i32), "normal": nrm * inv_len,
+            "crossing_hi": ishi, **counts, "kind_tests": kind_tests}
+
+
 # --- the kernel -------------------------------------------------------------------
 
 _OUT_KEYS = ("t", "leaf", "entity", "inside", "normal", "crossing_hi")
 _library = None
-_sig_tables = {}  # (csg signatures, device) -> int32 records on the device
 
 
 def build_library(verbose=False):
@@ -624,44 +972,25 @@ def _lib():
         path, _log = build_library()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # o, d, t_min, N, nodes, n_nodes, leaves, csg, sigs, out t, leaf,
-        # entity, inside, normal, crossing_hi, stream
-        lib.analytic_bvh_winner.argtypes = [p, p, p, i, p, i, p, p, p] + [p] * 7
+        # o, d, t_min, N, node rows, n_nodes, item rows, child rows, out t,
+        # leaf, entity, inside, normal, crossing_hi, stream
+        lib.analytic_bvh_winner.argtypes = [p, p, p, i, p, i, p, p] + [p] * 7
         lib.analytic_bvh_winner.restype = i
         _library = lib
     return _library
 
 
-def _sig_table(csg_sigs, device):
-    """The kernel's int32 signature records of ``csg_sigs``."""
-    rows = np.zeros((max(1, len(csg_sigs)), _SIG_WORDS), np.int32)
-    for s, (program, child_types) in enumerate(csg_sigs):
-        if len(child_types) > MAX_CSG_CHILD or len(program) > _MAX_OPS:
-            raise ValueError(f"CSG signature {s} exceeds the kernel's limits")
-        rows[s, 0] = len(child_types)
-        rows[s, 1] = len(program)
-        rows[s, 2:2 + len(child_types)] = child_types
-        for k, (op, arg) in enumerate(program):
-            rows[s, 8 + 2 * k] = op
-            rows[s, 9 + 2 * k] = arg
-    return torch.as_tensor(rows, device=device)
-
-
 def _launch(tables, meta, o, d, t_min):
     N = o.shape[0]
     dev = o.device
-    nodes, leaves, csg = tables["nodes"], tables["leaves"], tables["csg"]
-    for name, t in (("origin", o), ("direction", d), ("t_min", t_min),
-                    ("nodes", nodes), ("leaves", leaves), ("csg", csg)):
+    for name, t in (("origin", o), ("direction", d), ("t_min", t_min)):
         if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: want a contiguous float32 tensor on {dev}")
-    if (tuple(nodes.shape) != (meta[0], 9) or leaves.shape[1] != 23
-            or csg.shape[1] != _CSG_ROW):
+    if tables["nodes"].shape[0] != meta[0]:
         raise ValueError("BVH tables do not match their meta")
-    csg_sigs = meta[6] if len(meta) > 6 else ()
-    sigs = _sig_tables.get((csg_sigs, dev))
-    if sigs is None:
-        sigs = _sig_tables[(csg_sigs, dev)] = _sig_table(csg_sigs, dev)
+    rec = bvh_records(tables, meta)
+    if rec.nodes.device != dev:
+        raise ValueError(f"BVH tables on {rec.nodes.device}, rays on {dev}")
     out = {"t": torch.empty(N, dtype=torch.float32, device=dev),
            "leaf": torch.empty(N, dtype=torch.int32, device=dev),
            "entity": torch.empty(N, dtype=torch.int32, device=dev),
@@ -672,8 +1001,9 @@ def _launch(tables, meta, o, d, t_min):
     with torch.cuda.device(dev):
         err = _lib().analytic_bvh_winner(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), N,
-            nodes.data_ptr(), int(meta[0]), leaves.data_ptr(), csg.data_ptr(),
-            sigs.data_ptr(), *[out[k].data_ptr() for k in _OUT_KEYS], stream)
+            rec.nodes.data_ptr(), rec.nodes.shape[0], rec.items.data_ptr(),
+            rec.children.data_ptr(), *[out[k].data_ptr() for k in _OUT_KEYS],
+            stream)
     if err != 0:
         raise RuntimeError(f"analytic_bvh_winner: CUDA launch failed with "
                            f"error {err}")
