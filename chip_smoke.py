@@ -6,7 +6,10 @@
 Builds the CUDA kernels from source_tpu_torch/csrc/ (into
 source_tpu_torch/_build/): the fused bounce kernels, forward and adjoint, the
 analytic-BVH nearest-hit kernel and the mesh nearest-hit kernel. Holds each
-against its plain PyTorch version on the card, runs the furnace checks
+against its plain PyTorch version on the card (and the forward kernels'
+live-lane schedule bit for bit against its lane-order witnesses: the span
+kernel run twice, against the adjoint kernel's forward replay and against
+the chain of per-bounce kernels on live lists), runs the furnace checks
 (analytic and watertight mesh), and drives the main paths: on
 the glass Cornell box at 512x512 rays, 15 spectral bins, max_depth 16, 24
 iterations, forward through ``compile_scene`` -> ``render_batch`` and the
@@ -226,6 +229,180 @@ def mean_within(a, b, n_sigma=3.0):
     return diff, se, diff <= n_sigma * se + 1e-7
 
 
+def schedule_gates(where, fused, spec, tab, desc, st0, u, span):
+    """The forward kernels' schedule on one input. ``span()`` runs K3 (host
+    or kernel RNG) and returns (state, bits); ``u`` f32[n_steps, 10, N] are
+    the uniforms it read or drew. Fails unless K3 run twice is equal to
+    itself bit for bit (only the order of lanes within a queue depends on
+    the atomics, no float does); unless the chain of K1 over the same
+    uniforms, each bounce on the lanes the one before left alive, in place
+    (as the forward per-bounce route runs it), ends in K3's state and bits
+    bit for bit; and unless each list K1 wrote is, as a set, the lanes alive
+    after its bounce (``live_lanes_plain``). Returns (K3's state, bits, the
+    lanes each list held)."""
+    k_st, k_bits = span()
+    again = span()
+    if not (bitwise_equal(k_st, again[0]) and torch.equal(k_bits, again[1])):
+        fail(f"{where}: fused_span_fwd run twice differs")
+    st, live, listed, bits = {k: v.clone() for k, v in st0.items()}, None, [], []
+    for k in range(u.shape[0]):
+        st, b, live = fused.fused_bounce_fwd(spec, tab, desc, st, u[k],
+                                             live=live, survivors=True,
+                                             in_place=True)
+        bits.append(b)
+        n = int(live[1][0])
+        if not torch.equal(torch.sort(live[0][:n]).values,
+                           fused.live_lanes_plain(st["aux"])):
+            fail(f"{where}: fused_bounce_fwd's live list at bounce {k} is not "
+                 "the set of lanes alive after it")
+        listed.append(n)
+    if not (bitwise_equal(st, k_st) and torch.equal(torch.stack(bits), k_bits)):
+        fail(f"{where}: the chain of fused_bounce_fwd on live lists differs "
+             "from fused_span_fwd")
+    return k_st, k_bits, listed
+
+
+def short_list_gate(T, fused, scenes):
+    """K1 on live lists at small sizes, where a gathered list (under half of
+    the lanes) may be longer than the grid has warps: the chains of K1 on
+    lists, in place and out of place, equal the lane-order chain bit for bit
+    (state and bitfields) at every bounce, and each list is the set of lanes
+    alive after its bounce; K3 (whose tail spreads a short step over all of
+    its grid's warps) ends in the same state and bitfields. Fails too if no
+    bounce of a case ran such a list. Returns each case's list lengths."""
+    cfg = T.RayConfig(max_depth=FLAGSHIP["max_depth"], max_iters=24)
+    box = T.compile_scene(scenes.cornell_box(glass=True),
+                          T.SpectralConfig(375.0, 740.0, FLAGSHIP["bins"]))
+    zoo = T.compile_scene(scenes.zoo(), T.SpectralConfig(375.0, 740.0, 5))
+    cases = []
+    for name, scene, c, (o, d) in (
+            ("cornell_64x64", box, cfg, scenes.pinhole_rays(64, 64)),
+            ("cornell_128x128", box, cfg, scenes.pinhole_rays(128, 128)),
+            ("zoo_1000", zoo, T.RayConfig(max_depth=6),
+             scenes.scatter_rays(1000, seed=3))):
+        spec, entry = fused.scene_tables(scene, c)
+        desc = entry["desc"]
+        with torch.no_grad():
+            tab = fused.pack_tabvec(scene, spec)
+        st0 = fused.pack_state(T.init_rays(torch.as_tensor(o).cuda(),
+                                           torch.as_tensor(d).cuda(),
+                                           spec.bins))
+        N = st0["o"].shape[1]
+        warps = (N + 127) // 128 * 4  # K1's grid
+        u = torch.as_tensor(np.random.RandomState(N).random_sample(
+            (24, fused.N_UNIFORMS, N)).astype(np.float32)).cuda()
+        ref, outp, inp = st0, st0, {k: v.clone() for k, v in st0.items()}
+        live_in = live_out = None
+        listed, ref_bits_all = [], []
+        for k in range(u.shape[0]):
+            ref, ref_bits = fused.fused_bounce_fwd(spec, tab, desc, ref, u[k])
+            ref_bits_all.append(ref_bits)
+            inp, b_in, live_in = fused.fused_bounce_fwd(
+                spec, tab, desc, inp, u[k], live=live_in, survivors=True,
+                in_place=True)
+            outp, b_out, live_out = fused.fused_bounce_fwd(
+                spec, tab, desc, outp, u[k], live=live_out, survivors=True)
+            if not (bitwise_equal(inp, ref) and torch.equal(b_in, ref_bits)):
+                fail(f"short lists {name}: K1 on lists in place differs from "
+                     f"lane order at bounce {k}")
+            if not (bitwise_equal(outp, ref) and torch.equal(b_out, ref_bits)):
+                fail(f"short lists {name}: K1 on lists out of place differs "
+                     f"from lane order at bounce {k}")
+            want = fused.live_lanes_plain(ref["aux"])
+            for lanes, count in (live_in, live_out):
+                n = int(count[0])
+                if not torch.equal(torch.sort(lanes[:n]).values, want):
+                    fail(f"short lists {name}: the live list after bounce {k} "
+                         "is not the set of lanes alive")
+            listed.append(n)
+        k3_st, k3_bits = fused.fused_span_fwd(spec, tab, desc, st0, u)
+        if not (bitwise_equal(k3_st, ref)
+                and torch.equal(k3_bits, torch.stack(ref_bits_all))):
+            fail(f"short lists {name}: fused_span_fwd differs from the "
+                 "lane-order chain of fused_bounce_fwd")
+        if not any(warps < n and 2 * n < N for n in listed[:-1]):
+            fail(f"short lists {name}: no gathered list was longer than the "
+                 f"grid's {warps} warps ({listed})")
+        cases.append(dict(scene=name, n=N, warps=warps, listed=listed))
+    return cases
+
+
+def replay_gate(where, fused, scene, cfg, st0, n_steps, u=None, key=None):
+    """K3 on the scene's general tables against K4's forward replay, which
+    walks the span in lane order (an independent witness of the old
+    schedule): equal bit for bit. Host RNG with ``u``, kernel RNG with the
+    seed ``key``."""
+    spec, entry = fused.scene_tables(scene, cfg, general=True)
+    desc = entry["desc"]
+    with torch.no_grad():
+        tab = fused.pack_tabvec(scene, spec)
+    n = st0["o"].shape[1]
+    g_st, g_bits = fused.fused_span_fwd(spec, tab, desc, st0, u, seed=key,
+                                        n_steps=n_steps)
+    zeros = [torch.zeros((r, n), device="cuda") for r in (3, 3, spec.bins,
+                                                          spec.bins)]
+    got = fused.fused_span_bwd(spec, tab, desc,
+                               {k: st0[k] for k in ("o", "d", "thr", "aux")},
+                               u, g_bits, *zeros, return_replay=True, seed=key)
+    if not bitwise_equal(got[4], torch.cat([g_st["o"], g_st["d"], g_st["thr"],
+                                            g_st["aux"]])):
+        fail(f"{where}: K4's replay (lane order) does not end in K3's state "
+             "bit for bit")
+
+
+def device_ms_chain(make, reps=5):
+    """Median device milliseconds of each call of a chain, as device_ms
+    times one call: ``make()`` returns one pass's calls in order (a call may
+    use what the one before left: they run in turn), set up afresh for each
+    pass outside the timing; the card spins while the host enqueues the
+    pass. Returns a list, one median per call."""
+    passes = []
+    cycles = 400_000 * reps
+    while len(passes) < reps + 1:
+        fns = make()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(cycles)
+        pairs = []
+        t0 = time.perf_counter()
+        for fn in fns:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if e0.elapsed_time(pairs[0][0]) > host_ms:
+            passes.append([a.elapsed_time(b) for a, b in pairs])
+        elif cycles > 400_000 * reps * 4 ** 6:
+            fail("device_ms_chain: the host did not get ahead of the card")
+        else:
+            cycles *= 4
+    return [float(np.median(col)) for col in zip(*passes[1:])]
+
+
+def k3_timeline(fused, spec, tab, desc, st0, u):
+    """One K3 run with its timeline: block 0's clock at the end of the head
+    and after each step of the tail, and the lanes each tail step ran."""
+    n_steps = u.shape[0]
+    tl = torch.zeros((2 + 2 * n_steps,), dtype=torch.int64, device="cuda")
+    _st, bits = fused.fused_span_fwd(spec, tab, desc, st0, u, timeline=tl)
+    torch.cuda.synchronize()
+    t = tl.tolist()
+    ends = t[2:2 + n_steps]
+    steps = [(b - a) * 1e-6 for a, b in zip([t[1]] + ends[:-1], ends)]
+    return dict(total_ms=(ends[-1] - t[0]) * 1e-6, head_ms=(t[1] - t[0]) * 1e-6,
+                tail_ms=(ends[-1] - t[1]) * 1e-6, tail_step_ms=steps,
+                tail_lanes=t[2 + n_steps:],
+                entered=[int(x) for x in (st0["aux"][0] > 0.5).sum().view(1)]
+                + [int(x) for x in ((bits[:-1] >> fused.B_ALIVENEXT) & 1)
+                   .sum(1)],
+                tail_steps_run=sum(1 for x in t[2 + n_steps:] if x > 0))
+
+
 def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
                 general=False):
     """Hold fused_bounce_fwd and fused_span_fwd against their plain versions
@@ -340,6 +517,71 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes_ms=t_bytes, operations_ms=t_ops))
     res["fused_span_fwd"] = spans
+
+    # --- the schedule over the whole chain of n_max bounces: the gates (K3
+    # twice, K3 against the chain of K1 on live lists and each list against
+    # live_lanes_plain, K3 against K4's lane-order replay)
+    k3_st, k3_bits, listed = schedule_gates(
+        name, fused, spec, tab, desc, st0, u_all,
+        lambda: fused.fused_span_fwd(spec, tab, desc, st0, u_all))
+    replay_gate(name, fused, scene, cfg, st0, n_max, u=u_all)
+    # K3's head and tail by its own clock, and a span whose rays all die in
+    # their first bounce (sent out from far away): the floor of the launch,
+    # the head, one grid barrier and the final pass
+    spans[-1]["timeline"] = k3_timeline(fused, spec, tab, desc, st0, u_all)
+    far = dict(st0, o=(st0["d"] * 1e4).contiguous())
+    dead_bits = fused.fused_span_fwd(spec, tab, desc, far, u_all)[1]
+    if bool((dead_bits[1:] != 0).any()):
+        fail(f"{name}: rays sent outward from far away did not all die in "
+             "their first bounce")
+    spans[-1]["all_dead_ms"] = device_ms(
+        lambda: fused.fused_span_fwd(spec, tab, desc, far, u_all))
+
+    # K1 at every bounce of the chain by the device timer: on the live
+    # lists in place, as the forward per-bounce route runs it (one pass of
+    # the chain from a fresh copy of the state); on the lists out of place
+    # (which the differentiable route, out of place, does not use: it timed
+    # slower than lane order); and in lane order, the schedule before and
+    # the differentiable route's. Beside each bounce its bound: the table, the bitfields, and
+    # the state in and out and the uniforms of the lanes alive on entry.
+    def route_pass():
+        box = dict(st={k: v.clone() for k, v in st0.items()}, live=None)
+
+        def call(k):
+            def fn():
+                box["st"], _b, box["live"] = fused.fused_bounce_fwd(
+                    spec, tab, desc, box["st"], u_all[k], live=box["live"],
+                    survivors=True, in_place=True)
+            return fn
+        return [call(k) for k in range(n_max)]
+
+    in_place = device_ms_chain(route_pass)
+    entries, lists, cur, live = [], [], st0, None
+    for k in range(n_max):
+        entries.append(cur)
+        lists.append(live)
+        cur, _b, live = fused.fused_bounce_fwd(spec, tab, desc, cur, u_all[k],
+                                               live=live, survivors=True)
+    listed_ms = [device_ms(lambda: fused.fused_bounce_fwd(
+        spec, tab, desc, entries[k], u_all[k], live=lists[k], survivors=True))
+        for k in range(n_max)]
+    lane_order_ms = [device_ms(lambda: fused.fused_bounce_fwd(
+        spec, tab, desc, entries[k], u_all[k])) for k in range(n_max)]
+    alive = [int((e["aux"][0] > 0.5).sum()) for e in entries]
+    segs_k = [int((b & 1).sum()) for b in k3_bits]
+    bounds = [max((table_bytes + 4 * N + 4 * a * (2 * (8 + 2 * bins)
+                                                  + fused.N_UNIFORMS))
+                  / HBM_BYTES_PER_S, g * flops / F32_FLOPS) * 1e3
+              for a, g in zip(alive, segs_k)]
+    route = [k for k in range(n_max) if alive[k] > 0]  # the host early exit
+    res["fused_bounce_fwd"].update(
+        chain_bounces=n_max, route_launches=len(route), alive=alive,
+        listed=listed, in_place_ms=in_place, listed_ms=listed_ms,
+        lane_order_ms=lane_order_ms, bound_by_bounce_ms=bounds,
+        route_ms=sum(in_place[k] for k in route),
+        route_listed_ms=sum(listed_ms[k] for k in route),
+        route_lane_order_ms=sum(lane_order_ms[k] for k in route),
+        route_bound_ms=sum(bounds[k] for k in route))
     return res
 
 
@@ -374,6 +616,7 @@ def phase_env(fused, bvh):
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
          nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
+         ptxas_fwd_b5=ptxas(logs[1]), spill_at=fused.SPILL_AT,
          ptxas_bwd_b15=ptxas(logs[2]), ptxas_bwd_b5=ptxas(logs[3]),
          ptxas_bvh=ptxas(logs[4]),
          ptxas_mesh=ptxas(logs[5]), libraries=len(jobs))
@@ -391,6 +634,7 @@ def phase_kernels(T, fused, scenes):
     o, d = scenes.scatter_rays(N_ZOO, seed=1)
     zoo = kernel_case("zoo", scenes.zoo(), 5, T.RayConfig(max_depth=6), o, d,
                       (8, 24), 12, T, fused)
+    short = short_list_gate(T, fused, scenes)
     emit("kernels", tolerance=dict(rtol=RTOL, atol=ATOL, max_flip=MAX_FLIP,
                                    torus_bounce=TORUS_BOUNCE,
                                    torus_span=TORUS_SPAN,
@@ -398,7 +642,8 @@ def phase_kernels(T, fused, scenes):
          fused_bounce_fwd=[cornell["fused_bounce_fwd"],
                            general["fused_bounce_fwd"], zoo["fused_bounce_fwd"]],
          fused_span_fwd=(cornell["fused_span_fwd"] + general["fused_span_fwd"]
-                         + zoo["fused_span_fwd"]))
+                         + zoo["fused_span_fwd"]),
+         short_lists=short)
     return cornell
 
 
@@ -1144,11 +1389,16 @@ def krng_case(name, world, bins, cfg, o, d, seed, T, fused, against_plain):
     if not (bitwise_equal(s5, r5) and torch.equal(b5, c5)):
         fail(f"krng {name}: K3 with seed= and start=5 differs from the plain "
              "stream")
+    # the schedule under the kernel RNG: K3 twice, the chain of K1 on live
+    # lists fed the same stream, each list against live_lanes_plain
+    schedule_gates(f"krng {name}", fused, spec, tab, desc, st0, u_ref,
+                   lambda: fused.fused_span_fwd(spec, tab, desc, st0, seed=key,
+                                                n_steps=n_steps))
     segs = int((k_bits & 1).sum())
     entered = n + int(((k_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
     row = dict(scene=name, n=n, bins=bins, n_steps=n_steps, segments=segs,
                entered=entered, equal_to_fed_kernel=True,
-               equal_at_start_5=True)
+               equal_at_start_5=True, schedule_gates=True)
     if against_plain:
         # the plain version on the card: the plain generator, then the plain
         # span (what the wrapper runs for CPU tensors)
@@ -1180,6 +1430,9 @@ def krng_case(name, world, bins, cfg, o, d, seed, T, fused, against_plain):
         tab = fused.pack_tabvec(scene, spec)
     g_st, g_bits = fused.fused_span_fwd(spec, tab, desc, st0, seed=key,
                                         n_steps=n_steps)
+    schedule_gates(f"krng {name} (general records)", fused, spec, tab, desc,
+                   st0, u_ref, lambda: fused.fused_span_fwd(
+                       spec, tab, desc, st0, seed=key, n_steps=n_steps))
     rng = np.random.RandomState(seed[0] % 1000)
     cots = [torch.as_tensor(rng.standard_normal((r, n)).astype(np.float32)).cuda()
             for r in (3, 3, bins, bins)]
@@ -2383,6 +2636,14 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
             launches=count[name], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
+    # K1 summed over the launches of the per-bounce route (its live lists,
+    # in place), and K3's head and tail by its own clock
+    k1, k3 = cornell["fused_bounce_fwd"], cornell["fused_span_fwd"][-1]
+    rows[0].update(route_ms=k1["route_ms"], route_bound_ms=k1["route_bound_ms"],
+                   route_launches=k1["route_launches"])
+    rows[1].update(head_ms=k3["timeline"]["head_ms"],
+                   tail_ms=k3["timeline"]["tail_ms"],
+                   all_dead_ms=k3["all_dead_ms"])
     # the counting sort that schedules fused_bounce_bwd: part of K2's port
     # (the lane schedule of _bounce_bwd_call's grid), not a second kernel
     # ported; its time counts in K2's. max_abs_err: permutation entries and

@@ -46,9 +46,10 @@
 // every child's 20 words in registers (248 registers) timed no faster.
 //
 // The per-type closed forms are the fused kernels' (fused_bounce.cuh: quad,
-// the hit_* functions, normal_local, xf_point, xf_dir, inv_dir, n_box), the
-// same arithmetic as the TPU kernel's own (the torus's through this file's
-// torus_hit); the convex intervals of the CSG children are this file's. Built with -fmad=false and no fast math
+// the hit_* functions, normal_local, xf_point, xf_dir, inv_dir, n_box; the
+// torus through fb::hit_torus, by value), the same arithmetic as the TPU
+// kernel's own; the convex intervals of the CSG children are this file's.
+// Built with -fmad=false and no fast math
 // (NVCC_FLAGS in tracer/fused.py): the plain version's products and sums
 // round separately.
 
@@ -318,59 +319,6 @@ __device__ __forceinline__ Item csg_item(const float4* rec,
   return Item{t_b, inside, n, bits(tail.x), ishi};
 }
 
-struct TorusHit {
-  float t;
-  bool inside;
-};
-
-// fb::hit_torus with the same arithmetic and its parameters and results by
-// value: a call that takes no address leaves the caller's frame in
-// registers (fb::hit_torus takes the params and ``inside`` by address)
-__device__ __noinline__ TorusHit torus_hit(V3 o, V3 d, float R, float r,
-                                           float t_min) {
-  float dd = fb::dot3(d, d);
-  float od = fb::dot3(o, d);
-  float oo = fb::dot3(o, o);
-  float k = oo - r * r - R * R;
-  float a4 = dd * dd;
-  float a3 = 4.0f * dd * od;
-  float a2 = 2.0f * dd * k + 4.0f * od * od + 4.0f * R * R * d.z * d.z;
-  float a1 = 4.0f * k * od + 8.0f * R * R * o.z * d.z;
-  float a0 = k * k - 4.0f * R * R * (r * r - o.z * o.z);
-  fb::Root roots[4];
-  fb::solve_quartic(a4, a3, a2, a1, a0, 3, roots);
-  float best = BIG;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float ts = roots[i].v ? roots[i].x : 0.0f;
-    float px = o.x + ts * d.x;
-    float py = o.y + ts * d.y;
-    float pz = o.z + ts * d.z;
-    fb::take_after(best, t_min, roots[i].x,
-                   roots[i].v && fb::torus_root_valid(px, py, pz, R, r));
-  }
-  float rad = sqrtf(o.x * o.x + o.y * o.y + 1e-12f);
-  return TorusHit{best, (rad - R) * (rad - R) + o.z * o.z <= r * r};
-}
-
-// fb::hit_local, the torus through this file's torus_hit
-__device__ __forceinline__ float hit_general(int tid, V3 lo, V3 ld,
-                                           const float* pp, float t_min,
-                                           bool& inside) {
-  switch (tid) {
-    case fb::TYPE_SPHERE: return fb::hit_sphere(lo, ld, pp[0], t_min, inside);
-    case fb::TYPE_BOX: return fb::hit_box(lo, ld, pp, t_min, inside);
-    case fb::TYPE_CYLINDER: return fb::hit_cylinder(lo, ld, pp, t_min, inside);
-    case fb::TYPE_CONE: return fb::hit_cone(lo, ld, pp, t_min, inside);
-    case fb::TYPE_PARABOLA: return fb::hit_parabola(lo, ld, pp, t_min, inside);
-    default: {
-      TorusHit h = torus_hit(lo, ld, pp[0], pp[1], t_min);
-      inside = h.inside;
-      return h.t;
-    }
-  }
-}
-
 // a general, world-sphere or world-box item; ``p`` its record of "leaves"
 __device__ __forceinline__ Item simple_item(int typ, const float4* p, V3 o,
                                             V3 d, V3 inv, float t_min) {
@@ -405,7 +353,7 @@ __device__ __forceinline__ Item simple_item(int typ, const float4* p, V3 o,
   float m[12], pp[8];
   load_frame(p, m, pp);
   V3 lo = fb::xf_point(m, o), ldir = fb::xf_dir(m, d);
-  it.t = hit_general(typ, lo, ldir, pp, t_min, it.inside);
+  it.t = fb::hit_local(typ, lo, ldir, pp, t_min, it.inside);
   V3 q{lo.x + it.t * ldir.x, lo.y + it.t * ldir.y, lo.z + it.t * ldir.z};
   it.n = to_world(m, fb::normal_local(typ, q, pp));
   return it;

@@ -470,9 +470,18 @@ __device__ __forceinline__ bool torus_root_valid(float px, float py, float pz,
   return fabsf(f) <= tol;
 }
 
-__device__ __noinline__ float hit_torus(V3 o, V3 d, const float* p, float t_min,
-                                        bool& inside) {
-  float R = p[0], r = p[1];
+struct TorusHit {
+  float t;
+  bool inside;
+};
+
+// The nearest torus crossing after t_min (BIG: none), and whether the origin
+// is inside. Its own function (the quartic is long and rare), with the
+// parameters and results by value: a call that takes no address leaves the
+// caller's frame in registers. The analytic-BVH kernel (analytic_bvh.cu)
+// calls it too, through hit_local.
+__device__ __noinline__ TorusHit hit_torus(V3 o, V3 d, float R, float r,
+                                           float t_min) {
   float dd = dot3(d, d);
   float od = dot3(o, d);
   float oo = dot3(o, o);
@@ -495,8 +504,7 @@ __device__ __noinline__ float hit_torus(V3 o, V3 d, const float* p, float t_min,
                roots[i].v && torus_root_valid(px, py, pz, R, r));
   }
   float rad = sqrtf(o.x * o.x + o.y * o.y + 1e-12f);
-  inside = (rad - R) * (rad - R) + o.z * o.z <= r * r;
-  return best;
+  return TorusHit{best, (rad - R) * (rad - R) + o.z * o.z <= r * r};
 }
 
 __device__ __forceinline__ V3 n_torus(V3 p, const float* pp) {
@@ -541,7 +549,11 @@ __device__ __forceinline__ float hit_local(int tid, V3 lo, V3 ld, const float* p
     case TYPE_CYLINDER: return hit_cylinder(lo, ld, pp, t_min, inside);
     case TYPE_CONE: return hit_cone(lo, ld, pp, t_min, inside);
     case TYPE_PARABOLA: return hit_parabola(lo, ld, pp, t_min, inside);
-    default: return hit_torus(lo, ld, pp, t_min, inside);
+    default: {
+      const TorusHit h = hit_torus(lo, ld, pp[0], pp[1], t_min);
+      inside = h.inside;
+      return h.t;
+    }
   }
 }
 

@@ -74,6 +74,7 @@
 #include <cooperative_groups.h>
 
 #include "fused_adjoint.cuh"
+#include "lane_schedule.cuh"
 #include "philox.cuh"
 
 namespace cg = cooperative_groups;
@@ -84,7 +85,7 @@ namespace {
 // both adjoint kernels is cut for (128 registers a thread).
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 4;
-constexpr unsigned FULL = 0xffffffffu;
+using ls::FULL;
 // adjoint_bin: a warp's segment is CHUNKS chunks of 32 lanes
 constexpr int CHUNKS = 8;
 constexpr int SEG = 32 * CHUNKS;
@@ -105,37 +106,6 @@ __device__ __forceinline__ int adjoint_key(int bits) {
                      | (((bits >> fb::B_EXIT) & 1) << 3)
                      | (((bits >> fb::B_PARITY) & 1) << 4);
   return 1 + (win << KEY_BITS) + branch;
-}
-
-// Exclusive scan of one int per thread over the block (blockDim.x a multiple
-// of 32, at most 1024); ``tmp`` holds 32 ints of shared memory. Returns the
-// thread's exclusive prefix; ``total`` receives the block's sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* tmp,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    int y = __shfl_up_sync(FULL, x, s);
-    if (lane >= s) x += y;
-  }
-  if (lane == 31) tmp[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int t = lane < nw ? tmp[lane] : 0;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      int y = __shfl_up_sync(FULL, t, s);
-      if (lane >= s) t += y;
-    }
-    tmp[lane] = t;  // inclusive prefix of the warp totals
-  }
-  __syncthreads();
-  total = tmp[nw - 1];
-  int before = w > 0 ? tmp[w - 1] : 0;
-  __syncthreads();  // tmp may be reused by the caller
-  return before + x - v;
 }
 
 // --- adjoint_bin: stable counting sort of the live lanes by key ---------------------
@@ -232,7 +202,7 @@ k_bin_scatter(const int* __restrict__ bits, int N, int n_keys, int nseg,
   int sum = 0;
   for (int k = lo; k < hi; ++k) sum += tot[k];
   int total;
-  int run = block_exclusive_scan(sum, tmp, total);
+  int run = ls::block_exclusive_scan(sum, tmp, total);
   for (int k = lo; k < hi; ++k) {
     base[k] = run;
     run += tot[k];
@@ -297,33 +267,11 @@ __device__ __forceinline__ void store3(float* p, int i, int N, fb::V3 v) {
   p[2 * (size_t)N + i] = v.z;
 }
 
-// W floats (a multiple of 4) at a 16-byte aligned address, as float4s
-template <int W>
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  static_assert(W % 4 == 0, "rows are whole float4s");
-#pragma unroll
-  for (int k = 0; k < W / 4; ++k) {
-    const float4 q = reinterpret_cast<const float4*>(p)[k];
-    v[4 * k] = q.x;
-    v[4 * k + 1] = q.y;
-    v[4 * k + 2] = q.z;
-    v[4 * k + 3] = q.w;
-  }
-}
-template <int W>
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  static_assert(W % 4 == 0, "rows are whole float4s");
-#pragma unroll
-  for (int k = 0; k < W / 4; ++k)
-    reinterpret_cast<float4*>(p)[k] =
-        make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-}
-
 // fused_span_bwd's own rows, one per lane (lane-major, so that a lane's
 // values share a few 32-byte sectors where the lanes of a warp lie far
 // apart): an entry state o d thr alive depth, the cotangents o d thr, and
 // g_rad, each padded to whole float4s
-constexpr int round4(int n) { return (n + 3) & ~3; }
+using ls::round4;
 constexpr int SAVE_W = round4(8 + fb::NB);
 constexpr int COT_W = round4(6 + fb::NB);
 constexpr int RAD_W = round4(fb::NB);
@@ -493,7 +441,7 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
         v[7 + fb::NB] = ray.depth;
 #pragma unroll
         for (int k = 8 + fb::NB; k < SAVE_W; ++k) v[k] = 0.0f;
-        store_vec<SAVE_W>(saved + ((size_t)step * N + i) * SAVE_W, v);
+        ls::store_vec<SAVE_W>(saved + ((size_t)step * N + i) * SAVE_W, v);
         float uu[fb::N_UNIFORMS];
         draw(i, step, uu);
         fb::bounce(smem, s_desc, cfg, ray, uu);
@@ -531,8 +479,8 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
       for (int k = 6 + fb::NB; k < COT_W; ++k) c[k] = 0.0f;
 #pragma unroll
       for (int k = fb::NB; k < RAD_W; ++k) r[k] = 0.0f;
-      store_vec<COT_W>(cot + (size_t)i * COT_W, c);
-      store_vec<RAD_W>(rad + (size_t)i * RAD_W, r);
+      ls::store_vec<COT_W>(cot + (size_t)i * COT_W, c);
+      ls::store_vec<RAD_W>(rad + (size_t)i * RAD_W, r);
       ent[i] = entered;
     }
     __syncwarp();
@@ -542,9 +490,7 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
 #pragma unroll
       for (int c = 0; c < CHUNKS; ++c) {
         if (!__any_sync(FULL, key[c] >= 0)) continue;
-        const unsigned peers = __match_any_sync(FULL, key[c]);
-        if (key[c] >= 0 && lane == __ffs(peers) - 1)
-          atomicAdd(hist + (size_t)(s0 + c) * n_keys + key[c], __popc(peers));
+        ls::warp_count(key[c], hist + (size_t)(s0 + c) * n_keys);
       }
     }
   }
@@ -560,7 +506,7 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
     int sum = 0;
     for (int k = lo; k < hi; ++k) sum += h[k];
     int total;
-    int run = block_exclusive_scan(sum, s_scan, total);
+    int run = ls::block_exclusive_scan(sum, s_scan, total);
     for (int k = lo; k < hi; ++k) {
       cur[k] = run;
       run += h[k];
@@ -579,16 +525,9 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
 #pragma unroll
       for (int c = 0; c < CHUNKS; ++c) {
         if (!__any_sync(FULL, key[c] >= 0)) continue;
-        const unsigned peers = __match_any_sync(FULL, key[c]);
-        const int leader = __ffs(peers) - 1;
-        int at = 0;
-        if (key[c] >= 0 && lane == leader)
-          at = atomicAdd(cursor + (size_t)(s0 + c) * n_keys + key[c],
-                         __popc(peers));
-        at = __shfl_sync(FULL, at, leader);
-        if (key[c] >= 0)
-          perm[(size_t)(s0 + c) * N + at +
-               __popc(peers & ((1u << lane) - 1u))] = i;
+        const int at =
+            ls::warp_append(key[c], cursor + (size_t)(s0 + c) * n_keys);
+        if (key[c] >= 0) perm[(size_t)(s0 + c) * N + at] = i;
       }
     }
   }
@@ -602,9 +541,9 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
     for (int t = gtid; t < n_live; t += n_thr) {
       const int i = ps[t];
       float v[SAVE_W], c[COT_W], r[RAD_W], uu[fb::N_UNIFORMS];
-      load_vec<SAVE_W>(rows + (size_t)i * SAVE_W, v);
-      load_vec<COT_W>(cot + (size_t)i * COT_W, c);
-      load_vec<RAD_W>(rad + (size_t)i * RAD_W, r);
+      ls::load_vec<SAVE_W>(rows + (size_t)i * SAVE_W, v);
+      ls::load_vec<COT_W>(cot + (size_t)i * COT_W, c);
+      ls::load_vec<RAD_W>(rad + (size_t)i * RAD_W, r);
       draw(i, s, uu);
       fb::V3 g_o{c[0], c[1], c[2]}, g_d{c[3], c[4], c[5]};
       fb::bounce_bwd(smem, s_desc, cfg, fb::V3{v[0], v[1], v[2]},
@@ -616,14 +555,14 @@ k_span_bwd(const float* __restrict__ tab, int n_tab,
       c[3] = g_d.x;
       c[4] = g_d.y;
       c[5] = g_d.z;
-      store_vec<COT_W>(cot + (size_t)i * COT_W, c);
+      ls::store_vec<COT_W>(cot + (size_t)i * COT_W, c);
     }
     grid.sync();
   }
   // the staged cotangents into the outputs
   for (int i = gtid; i < N; i += n_thr) {
     float c[COT_W];
-    load_vec<COT_W>(cot + (size_t)i * COT_W, c);
+    ls::load_vec<COT_W>(cot + (size_t)i * COT_W, c);
     store3(go2, i, N, fb::V3{c[0], c[1], c[2]});
     store3(gd2, i, N, fb::V3{c[3], c[4], c[5]});
 #pragma unroll
@@ -743,17 +682,7 @@ extern "C" int fused_span_bwd(
                                        : (const void*)k_span_bwd<false>;
   cudaError_t err = seed != nullptr ? allow_smem(k_span_bwd<true>, smem)
                                     : allow_smem(k_span_bwd<false>, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int lane_blocks = (N + THREADS - 1) / THREADS;
-  const int blocks = per_sm * sms < lane_blocks ? per_sm * sms : lane_blocks;
   const float* u_arg = seed != nullptr ? nullptr : u;
   const int start_arg = seed != nullptr ? start : 0;
   void* args[] = {(void*)&tab,     (void*)&n_tab,   (void*)&desc,
@@ -765,8 +694,7 @@ extern "C" int fused_span_bwd(
                   (void*)&gthr2,   (void*)&gtab,    (void*)&fw,
                   (void*)&replay,  (void*)&iw,      (void*)&N,
                   (void*)&n_steps, (void*)&cfg};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
-                                    smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)ls::launch_cooperative(kernel, THREADS, smem,
+                                     (N + THREADS - 1) / THREADS, args,
+                                     (cudaStream_t)stream);
 }

@@ -1492,9 +1492,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # are a translation unit of their own: both build in parallel, and a change to
 # the adjoint never moves the forward kernels' code.
 _SOURCES = {
-    "fwd": ("fused_kernels.cu", ("fused_bounce.cuh", "philox.cuh")),
+    "fwd": ("fused_kernels.cu", ("fused_bounce.cuh", "lane_schedule.cuh",
+                                 "philox.cuh")),
     "bwd": ("fused_bwd_kernels.cu", ("fused_bounce.cuh", "fused_adjoint.cuh",
-                                     "philox.cuh")),
+                                     "lane_schedule.cuh", "philox.cuh")),
 }
 _libraries = {}  # (which, bins) -> loaded ctypes library
 
@@ -1554,13 +1555,19 @@ def _library(bins, which="fwd"):
         tail = [i, i, f, f, f, f, f, p]
         if which == "fwd":
             # tab, n_tab, desc, n_desc, [state in x5], [state out x5], u,
-            # (seed, start,) bits, N, (n_steps,) tail; the I/O kernel takes
-            # no configuration
+            # (seed, start,) bits, (live lanes in: list, count; out: list,
+            # count | rows, int workspace, trace,) N, (n_steps,) tail; the
+            # I/O kernel takes no configuration
             head = [p, i, p, i] + [p] * 10
-            lib.fused_bounce_fwd.argtypes = head + [p, p, i] + tail
-            lib.fused_span_fwd.argtypes = head + [p, p, i, p, i, i] + tail
+            lib.fused_bounce_fwd.argtypes = head + [p, p, p, p, p, p, i] + tail
+            lib.fused_span_fwd.argtypes = (head + [p, p, i, p, p, p, p, i, i]
+                                           + tail)
             lib.fused_bounce_replay.argtypes = head + [p, p, i] + tail
             lib.fused_bounce_io.argtypes = head + [p, p, i, p]
+            lib.fused_span_fwd_words.argtypes = [i, i]
+            lib.fused_span_fwd_floats.argtypes = [i]
+            lib.fused_span_fwd_words.restype = ctypes.c_longlong
+            lib.fused_span_fwd_floats.restype = ctypes.c_longlong
             fns = (lib.fused_bounce_fwd, lib.fused_span_fwd,
                    lib.fused_bounce_replay, lib.fused_bounce_io)
         else:
@@ -1721,18 +1728,123 @@ def span_fwd_plain(spec, tab, st, u_all):
     return st, torch.stack(bits)
 
 
+def live_lanes_plain(aux):
+    """The lanes alive in the packed state's ``aux`` (aux[0] > 0.5), sorted:
+    i32[n]. ``fused_bounce_fwd`` lists the same lanes, in the order of its
+    atomics, for the next bounce."""
+    return (aux[0] > 0.5).nonzero().squeeze(1).to(torch.int32)
+
+
+def _live_list_plain(aux):
+    """``live_lanes_plain`` in the layout of the kernel's list: (lanes i32[N]
+    whose first ``count[0]`` entries are the live lanes, -1 after them,
+    count i32[1])."""
+    live = live_lanes_plain(aux)
+    lanes = torch.full((aux.shape[1],), -1, dtype=torch.int32,
+                       device=aux.device)
+    lanes[:live.numel()] = live
+    return lanes, torch.tensor([live.numel()], dtype=torch.int32,
+                               device=aux.device)
+
+
+# --- the span kernel's schedule ----------------------------------------------------
+# fused_span_fwd walks each warp's 32 lanes in registers while at least
+# SPILL_AT of them are alive (the head); below that the survivors move to
+# lane-major rows and are run step by step, each step's lanes dense over the
+# grid (the tail). The kernel compiles in its own SPILL_AT
+# (csrc/fused_kernels.cu); this one is the plain model's default, and a test
+# holds the two equal.
+SPILL_AT = 24
+WARP = 32
+
+
+def _rows_of(st):
+    """Packed state -> lane-major rows f32[N, 8 + 2B] (o d thr rad aux)."""
+    return torch.cat([st[k] for k in _STATE_KEYS]).t().contiguous()
+
+
+def _state_of_rows(rows, bins):
+    parts = rows.t().split((3, 3, bins, bins, 2))
+    return {k: v.contiguous() for k, v in zip(_STATE_KEYS, parts)}
+
+
+def _bounce_lanes(spec, tab, st, u, lanes):
+    """``bounce_fwd_plain`` on the lanes ``lanes`` of ``st`` gathered:
+    (their new state, their bitfields)."""
+    sub = {k: v[:, lanes] for k, v in st.items()}
+    return bounce_fwd_plain(spec, tab, sub, u[:, lanes])
+
+
+def span_fwd_scheduled_plain(spec, tab, st, u_all, spill_at=SPILL_AT):
+    """Plain model of ``fused_span_fwd``'s schedule at ``spill_at``: the head
+    walks each chunk of 32 lanes (a warp's) step by step while at least
+    ``spill_at`` of its lanes are alive; then its survivors are handed off:
+    their state written to lane-major rows and their lanes queued for that
+    step; the tail then runs step by step, each step's queued lanes gathered
+    from their rows, bounced, written back, and the survivors queued for the
+    next step; at the end the rows of the handed-off lanes are the output.
+    Uniforms and bitfields stay indexed by the lane. Returns (state,
+    bits[n_steps, N]): ``span_fwd_plain``'s, lane for lane (on the CPU to the
+    rounding of a lane evaluated at another position of a tensor)."""
+    N, n_steps = st["o"].shape[1], u_all.shape[0]
+    dev = st["o"].device
+    out = {k: v.clone() for k, v in st.items()}
+    bits = torch.zeros((n_steps, N), dtype=torch.int32, device=dev)
+    chunk = torch.arange(N, device=dev) // WARP
+    n_chunks = (N + WARP - 1) // WARP
+    walking = torch.ones(n_chunks, dtype=torch.bool, device=dev)
+    rows = torch.zeros((N, 8 + 2 * spec.bins), dtype=torch.float32, device=dev)
+    moved = torch.zeros(N, dtype=torch.bool, device=dev)
+    queue = [[] for _ in range(n_steps)]
+    # the head: a chunk ends when none of its lanes is alive, or hands its
+    # survivors off when fewer than spill_at are
+    for s in range(n_steps):
+        alive = (out["aux"][0] > 0.5) & walking[chunk]
+        n_alive = torch.bincount(chunk[alive], minlength=n_chunks)
+        leave = walking & (n_alive > 0) & (n_alive < spill_at)
+        hand = alive & leave[chunk]
+        if bool(hand.any()):
+            lanes = hand.nonzero().squeeze(1)
+            rows[lanes] = _rows_of({k: v[:, lanes] for k, v in out.items()})
+            moved |= hand
+            queue[s].append(lanes)
+        walking &= n_alive >= max(spill_at, 1)
+        lanes = (alive & walking[chunk]).nonzero().squeeze(1)
+        if lanes.numel():
+            new, bits[s, lanes] = _bounce_lanes(spec, tab, out, u_all[s], lanes)
+            for k in _STATE_KEYS:
+                out[k][:, lanes] = new[k]
+    # the tail: each step's queue, gathered from the rows and written back
+    for s in range(n_steps):
+        if not queue[s]:
+            continue
+        lanes = torch.cat(queue[s])
+        new, bits[s, lanes] = bounce_fwd_plain(
+            spec, tab, _state_of_rows(rows[lanes], spec.bins),
+            u_all[s][:, lanes])
+        rows[lanes] = _rows_of(new)
+        more = lanes[new["aux"][0] > 0.5]
+        if s + 1 < n_steps and more.numel():
+            queue[s + 1].append(more)
+    final = _state_of_rows(rows[moved], spec.bins)
+    for k in _STATE_KEYS:
+        out[k][:, moved] = final[k]
+    return out, bits
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn_name, spec, tab, desc, st, args, cfg=True):
+def _launch(fn_name, spec, tab, desc, st, args, cfg=True, in_place=False):
     """Shared body of the forward kernel wrappers for CUDA tensors: the
-    tables, the state in and a fresh state out, then ``args`` (pointers as
-    ints, None for a null one), the configuration and the stream. Returns
-    the new packed state."""
+    tables, the state in and a fresh state out (``in_place``: the state in
+    again), then ``args`` (pointers as ints, None for a null one), the
+    configuration and the stream. Returns the new packed state."""
     _check_tables(spec, tab, desc)
     lib = _library(spec.bins)
-    out = {k: torch.empty_like(st[k]) for k in _STATE_KEYS}
+    out = (dict(st) if in_place
+           else {k: torch.empty_like(st[k]) for k in _STATE_KEYS})
     stream = torch.cuda.current_stream(tab.device).cuda_stream
     with torch.cuda.device(tab.device):
         err = getattr(lib, fn_name)(
@@ -1750,31 +1862,66 @@ def _check_u(u, N):
         raise ValueError(f"u: shape {tuple(u.shape)}")
 
 
-def fused_bounce_fwd(spec, tab, desc, st, u):
+def _check_live(live, N, dev):
+    lanes, count = live
+    for t, shape in ((lanes, (N,)), (count, (1,))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError("live must be the (lanes i32[N], count i32[1]) "
+                             "a previous fused_bounce_fwd returned")
+
+
+def fused_bounce_fwd(spec, tab, desc, st, u, live=None, survivors=False,
+                     in_place=False):
     """One bounce for every ray: ``st`` packed state, ``u`` f32[10, N].
     Returns (new packed state, bits i32[N]). CUDA tensors launch the
-    hand-written kernel or raise; CPU tensors take the plain version."""
+    hand-written kernel or raise; CPU tensors take the plain version.
+
+    The schedule, which no result depends on: ``live`` is the (lanes
+    i32[N], count i32[1]) of the lanes alive in ``st``, as the previous
+    bounce's call returned them with ``survivors=True`` (the count stays on
+    the device); where they are fewer than half of the lanes the kernel runs
+    them only, gathered into full warps. Without it, every lane in lane
+    order. ``survivors=True`` appends
+    the lanes alive after the bounce, in that layout, to the result.
+    ``in_place=True`` lets the kernel write the new state over ``st``, which
+    the caller then gives up: a lane dead on entry costs nothing. The plain
+    version computes every lane and ignores all three but for listing the
+    survivors (``live_lanes_plain``)."""
     N = st["o"].shape[1]
     _check_u(u, N)
     if not tab.is_cuda:
-        return bounce_fwd_plain(spec, tab, st, u)
+        new, bits = bounce_fwd_plain(spec, tab, st, u)
+        return (new, bits, _live_list_plain(new["aux"])) if survivors \
+            else (new, bits)
     _check_state(spec, st, {"u": u, "tab": tab})
-    bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
+    dev = tab.device
+    if live is not None:
+        _check_live(live, N, dev)
+    bits = torch.empty((N,), dtype=torch.int32, device=dev)
+    nxt = ((torch.empty((N,), dtype=torch.int32, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+           if survivors else (None, None))
     out = _launch("fused_bounce_fwd", spec, tab, desc, st,
-                  [u.data_ptr(), bits.data_ptr(), N])
+                  [u.data_ptr(), bits.data_ptr(),
+                   *(_ptr(t) for t in (live or (None, None))),
+                   *(_ptr(t) for t in nxt), N], in_place=in_place)
     fused_bounce_fwd.launches += 1
-    return out, bits
+    return (out, bits, nxt) if survivors else (out, bits)
 
 
 def fused_span_fwd(spec, tab, desc, st, u_all=None, seed=None, start=0,
-                   n_steps=None):
+                   n_steps=None, timeline=None):
     """``n_steps`` bounces in one kernel. Host RNG: ``u_all`` f32[n_steps,
     10, N]. Kernel RNG: ``seed`` (an i32[2] tensor on the state's device) and
     ``n_steps``; the kernel draws the uniforms of bounces ``start`` ..
     ``start + n_steps - 1`` itself (Philox, csrc/philox.cuh), and no uniform
     tensor is made; the plain version draws them with ``philox_uniforms``.
     Exactly one of ``u_all`` or ``seed``. Returns (final packed state, bits
-    i32[n_steps, N])."""
+    i32[n_steps, N]). ``timeline`` (CUDA only, for profiling; may be None):
+    an i64[2 + 2 n_steps] tensor that receives block 0's %globaltimer (ns) at
+    the kernel's start, at the end of its head and after each step of its
+    tail, then the lanes the tail ran at each step."""
     N = st["o"].shape[1]
     n_steps = _uniform_source(u_all, seed, n_steps, N)
     if not tab.is_cuda:
@@ -1783,12 +1930,27 @@ def fused_span_fwd(spec, tab, desc, st, u_all=None, seed=None, start=0,
         return span_fwd_plain(spec, tab, st, u_all)
     _check_state(spec, st, {"tab": tab} if seed is not None
                  else {"u": u_all, "tab": tab})
+    dev = tab.device
     if seed is not None:
-        _check_seed(seed, tab.device)
+        _check_seed(seed, dev)
+    if timeline is not None and (
+            timeline.dtype != torch.int64 or timeline.device != dev
+            or tuple(timeline.shape) != (2 + 2 * n_steps,)):
+        raise ValueError(f"timeline must be an int64[{2 + 2 * n_steps}] "
+                         f"tensor on {dev}")
+    lib = _library(spec.bins)
     # rays that die early leave the loop; their later bitfields are 0
-    bits = torch.zeros((n_steps, N), dtype=torch.int32, device=tab.device)
+    bits = torch.zeros((n_steps, N), dtype=torch.int32, device=dev)
+    # the rows of the lanes that leave the head, and the int workspace: the
+    # head's chunk counter, each step's queue and its length, and which
+    # lanes of each chunk left the head
+    rows = torch.empty((lib.fused_span_fwd_floats(N),), dtype=torch.float32,
+                       device=dev)
+    iw = torch.empty((lib.fused_span_fwd_words(N, n_steps),),
+                     dtype=torch.int32, device=dev)
     out = _launch("fused_span_fwd", spec, tab, desc, st,
-                  [_ptr(u_all), _ptr(seed), int(start), bits.data_ptr(), N,
+                  [_ptr(u_all), _ptr(seed), int(start), bits.data_ptr(),
+                   rows.data_ptr(), iw.data_ptr(), _ptr(timeline), N,
                    n_steps])
     fused_span_fwd.launches += 1
     return out, bits
@@ -2123,18 +2285,21 @@ bin_live_lanes.launches = 0
 # --- what wavefront.trace_rays and trace_rays_diff call ----------------------------
 
 
+def _columns(x):
+    """x[N, C] -> a new contiguous f32[C, N], never a view of x."""
+    return x.t().to(torch.float32, memory_format=torch.contiguous_format,
+                    copy=True)
+
+
 def pack_state(state):
     """RayState -> packed SoA dict (f32; a bf16 spectral state widens here
-    and rounds back only in ``unpack_state``, never inside a span)."""
+    and rounds back only in ``unpack_state``, never inside a span). Every
+    tensor is new, so a kernel may update it in place."""
     aux = torch.stack([torch.where(state.alive, 1.0, 0.0),
                        state.depth.to(torch.float32)])
-    return {
-        "o": state.origin.to(torch.float32).t().contiguous(),
-        "d": state.direction.to(torch.float32).t().contiguous(),
-        "thr": state.throughput.to(torch.float32).t().contiguous(),
-        "rad": state.radiance.to(torch.float32).t().contiguous(),
-        "aux": aux,
-    }
+    return {"o": _columns(state.origin), "d": _columns(state.direction),
+            "thr": _columns(state.throughput), "rad": _columns(state.radiance),
+            "aux": aux}
 
 
 def unpack_state(packed, template, seg_add):
@@ -2193,11 +2358,15 @@ def fused_forward_span(tab, desc, spec, state, u_all=None, span="multi",
         out, bits = fused_span_fwd(spec, tab, desc, st, u_p)
         seg = torch.sum(bits & 1, dtype=torch.int32)
         return unpack_state(out, state, seg)
+    # each bounce runs the lanes the previous one left alive, over the
+    # state that pack_state made for this span, in place
     seg = torch.zeros((), dtype=torch.int32, device=tab.device)
+    live = None
     for u in u_p:
         if early_exit and not bool((st["aux"][0] > 0.5).any()):
             break
-        st, bits = fused_bounce_fwd(spec, tab, desc, st, u)
+        st, bits, live = fused_bounce_fwd(spec, tab, desc, st, u, live=live,
+                                          survivors=True, in_place=True)
         seg = seg + torch.sum(bits & 1, dtype=torch.int32)
     return unpack_state(st, state, seg)
 
@@ -2213,6 +2382,8 @@ class _SpanPerBounce(torch.autograd.Function):
         st = {"o": o, "d": d, "thr": thr, "rad": rad, "aux": aux}
         entries = []
         seg = torch.zeros((), dtype=torch.int32, device=tab.device)
+        # out of place (the backward reads every entry state) and in lane
+        # order: a gathered bounce out of place timed slower than lane order
         for u in u_p:
             new, bits = fused_bounce_fwd(spec, tab, desc, st, u)
             entries.append((st["o"], st["d"], st["thr"], st["aux"], bits))

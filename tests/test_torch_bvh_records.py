@@ -17,6 +17,7 @@ rays picked by a numpy seed, and ``scenes.leaf_field`` (256 simple leaves of
 all six types, 8 lens CSGs) with 4 096 ``field_rays``.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -322,23 +323,24 @@ def test_program_box():
     assert not bool(B._slab_hit(box[:3], box[3:], o, inv, torch.tensor([3e38]))[0])
 
 
-def _torus_arithmetic(source, head):
-    """A torus hit's quartic, root selection and radius of the origin in a
-    CUDA source, from the function ``head`` on, with namespace prefixes and
-    whitespace dropped."""
+def _code(source):
+    """A CUDA source of the port with its comments dropped."""
     src = (Path(B.__file__).parents[1] / "csrc" / source).read_text()
-    body = src[src.index(head):]
-    end = body.index(";", body.index("float rad = sqrtf(o.x")) + 1
-    return " ".join(body[body.index("float dd ="):end].replace("fb::", "").split())
+    return re.sub(r"//[^\n]*", "", src)
 
 
-def test_torus_copy_follows_the_fused_kernels():
-    """K6 calls its own copy of the fused kernels' torus hit, with the
-    arguments by value (``ab::torus_hit``); a change to ``fb::hit_torus``
-    fails here until the copy takes the same arithmetic."""
-    ref = _torus_arithmetic("fused_bounce.cuh",
-                            "float hit_torus(V3 o, V3 d, const float* p")
-    copy = _torus_arithmetic("analytic_bvh.cu",
-                             "TorusHit torus_hit(V3 o, V3 d, float R")
-    assert "solve_quartic(a4, a3, a2, a1, a0, 3, roots)" in ref
-    assert copy == ref
+def test_k6_calls_the_fused_kernels_torus():
+    """The torus hit has one body, ``fb::hit_torus`` (fused_bounce.cuh, its
+    arguments and results by value), which K6 reaches through
+    ``fb::hit_local``: K6 holds no quartic, root test or torus hit of its
+    own, so a change to the torus moves the fused kernels and K6 together."""
+    k6, fb = _code("analytic_bvh.cu"), _code("fused_bounce.cuh")
+    for own in ("solve_quartic", "torus_root_valid", "TorusHit", "torus_hit",
+                "hit_general"):
+        assert own not in k6, own
+    assert "fb::hit_local(" in k6
+    local = fb[fb.index("float hit_local("):]
+    local = local[:local.index("\n}\n")]
+    assert "hit_torus(lo, ld, pp[0], pp[1], t_min)" in local
+    assert fb.count("TorusHit hit_torus(V3 o, V3 d, float R, float r,") == 1
+    assert fb.count("solve_quartic(a4, a3, a2, a1, a0, 3, roots)") == 1

@@ -35,6 +35,7 @@ from source_tpu.tracer.wavefront import (
 
 import source_tpu_torch as T
 from source_tpu_torch import scenes
+from source_tpu_torch.tracer import fused
 
 from test_torch_common import B, CFG, carry_scene
 
@@ -45,6 +46,11 @@ CASES = {
     "plain_f32": (256, (), "float32"),
     "compacted_bf16": (384, ((3, 2), (2, 2)), "bfloat16"),
 }
+
+
+# each case's port-side inputs (config, rays, uniforms, rotations), kept by
+# ``traces`` for tests that trace the case again
+INPUTS = {}
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +94,7 @@ def traces(cornell_pair):
                                         device="cpu")
                    for span in ("multi", "perbounce")}
             out[name] = (ref, got)
+            INPUTS[name] = (ts, cfg, o, d, u_all, shifts)
     finally:
         if prev is None:
             os.environ.pop("SOURCE_TPU_FUSED", None)
@@ -123,6 +130,29 @@ def test_span_and_perbounce_routes_are_identical(traces, case):
     for f in ("radiance", "origin", "direction", "throughput", "alive", "depth"):
         assert torch.equal(getattr(got["multi"], f), getattr(got["perbounce"], f))
     assert int(got["multi"].segments) == int(got["perbounce"].segments)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_scheduled_span_matches_jax_fused_route(traces, case, monkeypatch):
+    """The span kernel's schedule (head, hand-off to rows, step-aligned
+    tail: ``span_fwd_scheduled_plain`` at the kernel's SPILL_AT) in place of
+    the plain span inside ``render_batch``: the reference's trace, to the
+    tolerance of the plain route."""
+    ref, got = traces[case]
+    ts, cfg, o, d, u_all, shifts = INPUTS[case]
+    monkeypatch.setattr(fused, "span_fwd_plain",
+                        lambda spec, tab, st, u:
+                        fused.span_fwd_scheduled_plain(spec, tab, st, u))
+    sched = T.render_batch(ts, T.RayConfig(**cfg), o, d, u_all=u_all,
+                           shifts=shifts, span="multi", device="cpu")
+    assert int(sched.segments) == int(ref.segments) == int(got["multi"].segments)
+    np.testing.assert_array_equal(sched.alive.numpy(), np.asarray(ref.alive))
+    np.testing.assert_array_equal(sched.depth.numpy(), np.asarray(ref.depth))
+    a = np.asarray(ref.radiance.astype(jnp.float32))
+    b = sched.radiance.float().numpy()
+    assert np.isfinite(b).all() and b.shape == a.shape
+    assert (np.abs(a - b) > 1e-4 + 1e-3 * np.abs(a)).any(axis=1).mean() <= 0.005
+    assert float(b.sum()) > 0.0
 
 
 @pytest.mark.parametrize("span", ["multi", "perbounce"])
