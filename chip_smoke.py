@@ -25,8 +25,14 @@ variants, decisions replayed and loads and stores alone, over the flagship's
 compaction, through ``render_batch`` on the wavefront route; the mesh demo
 (demos/mesh_render.py) at 512x384 rays, 12 bins, max_depth 12, 16
 iterations, with compaction, on the wavefront route, and a world holding a
-1.31M-triangle icosphere. Every phase prints one JSON line; any failure exits
-non-zero. Without a CUDA device the script exits 2 and prints no result.
+1.31M-triangle icosphere; the training step through the differentiable
+wavefront route on the CSG demo and the mesh demo at those sizes (phase
+``wstep``: checkpoint blocks of 1 and of 0 bounces, exact kernel launches,
+the card against the CPU at 4 096 rays), and ``modifier_world`` (Blend, Add,
+Roughen, user BSDFs, an inhomogeneous volume) at the CSG demo's camera,
+forward and differentiable (phase ``modifiers``). Every phase prints one
+JSON line; any failure exits non-zero. Without a CUDA device the script
+exits 2 and prints no result.
 ``--phases krng,fusedprof`` runs a subset while developing (the last line is
 then not a pass).
 """
@@ -1907,15 +1913,20 @@ def bvh_case(name, scene, o, d, sort_rays, bvh):
     return res
 
 
-def csg_setup(T, scenes):
-    """The CSG demo, its ray configuration and its 512x512 camera rays."""
-    scene = T.compile_scene(scenes.csg_world(),
-                            T.SpectralConfig(375.0, 740.0, CSG["bins"]))
-    cfg = T.RayConfig(
+def csg_setup_cfg(T):
+    """The CSG demo's ray configuration."""
+    return T.RayConfig(
         max_depth=CSG["max_depth"], extinction_prob=CSG["extinction_prob"],
         extinction_min_depth=3, importance_sampling=True,
         important_path_weight=0.25, max_iters=CSG["max_iters"],
         compact_schedule=CSG["compact_schedule"], spectral_dtype="float32")
+
+
+def csg_setup(T, scenes):
+    """The CSG demo, its ray configuration and its 512x512 camera rays."""
+    scene = T.compile_scene(scenes.csg_world(),
+                            T.SpectralConfig(375.0, 740.0, CSG["bins"]))
+    cfg = csg_setup_cfg(T)
     o, d = scenes.camera_rays(CSG["width"], CSG["height"], CSG["fov"],
                               CSG["position"])
     return scene, cfg, torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
@@ -2609,8 +2620,425 @@ def phase_mesh(T, fused, scenes):
     return dict(launches=launches, big_launches=big_launches)
 
 
+# --- the differentiable wavefront route (phases wstep and modifiers) ---------
+
+WSTEP_SEED = 21
+WSTEP_N_CPU = 4096       # rays of the card-against-CPU check (every 64th)
+REMAT_LOSS_RTOL = 1e-6   # loss, remat_block 1 against 0
+REMAT_GRAD_TOL = 1e-5    # gradient fields, of each field's largest entry
+CPU_LOSS_RTOL = 1e-4     # loss over the agreeing lanes, card against CPU
+CPU_GRAD_TOL = 1e-3      # gradient fields, of each field's largest entry
+MOD_RAYS = 512           # modifier_world at the CSG demo's camera, 512x512
+
+
+def emission_rows(scene):
+    """(material, slot) of every spectral row that only emits: surface
+    emitters and lights (slot 0), the checkerboard (slots 0 and 1),
+    homogeneous volume emitters (slot 0)."""
+    from source_tpu_torch.optical.material import base as mb
+    rows = {(m, 0) for m, t in enumerate(scene.mat_types)
+            if t in (mb.MAT_EMITTER, mb.MAT_EMITTER_ANISO, mb.MAT_LIGHT,
+                     mb.MAT_CHECKERBOARD)}
+    rows |= {(m, 1) for m, t in enumerate(scene.mat_types)
+             if t == mb.MAT_CHECKERBOARD}
+    rows |= {(r[1], 0) for r in scene.volume_entities
+             if r[2] == mb.VOL_HOMOGENEOUS}
+    return sorted(rows)
+
+
+def euler_ratio(scene, loss, grads, rad_cross=0.0):
+    """sum(value * gradient) over the emission rows over 2 (loss -
+    rad_cross). Radiance less the part of the inhomogeneous volumes (whose
+    emission is a closure, not a row) is homogeneous of degree 1 in the
+    rows, so against a zero target the ratio is 1; ``rad_cross`` is
+    mean(radiance * that part), 0 without such volumes."""
+    lhs = sum(float((scene.mat_spectra[m, k] * grads["mat_spectra"][m, k])
+                    .sum()) for m, k in emission_rows(scene))
+    return lhs / (2.0 * (float(loss) - rad_cross))
+
+
+def grad_gates(where, scene, loss, grads, nonzero, mesh_nonzero):
+    """Finite loss > 0, finite gradients of the scene's shapes, the named
+    fields not all zero (and each mesh's ``mesh_nonzero`` fields)."""
+    if not (np.isfinite(float(loss)) and float(loss) > 0.0):
+        fail(f"{where}: loss {float(loss)} is not finite and positive")
+    for f, g in grads.items():
+        if f == "meshes":
+            continue
+        if g.shape != getattr(scene, f).shape or not bool(
+                torch.isfinite(g).all()):
+            fail(f"{where}: gradient of {f} has the wrong shape or is not "
+                 "finite")
+    for f in nonzero:
+        if not bool((grads[f] != 0).any()):
+            fail(f"{where}: gradient of {f} is all zero")
+    if bool(scene.meshes) != ("meshes" in grads):
+        fail(f"{where}: grads['meshes'] is there for a scene without meshes "
+             "or missing for one with them")
+    for slot, mg in enumerate(grads.get("meshes", ())):
+        for f, g in mg.items():
+            if g.shape != getattr(scene.meshes[slot], f).shape or not bool(
+                    torch.isfinite(g).all()):
+                fail(f"{where}: gradient of mesh {slot}'s {f} has the wrong "
+                     "shape or is not finite")
+        for f in mesh_nonzero:
+            if not bool((mg[f] != 0).any()):
+                fail(f"{where}: gradient of mesh {slot}'s {f} is all zero")
+
+
+def flat_grads(grads):
+    """Field name -> gradient, each mesh's fields as ``mesh<slot>.<field>``."""
+    out = {f: g for f, g in grads.items() if f != "meshes"}
+    for slot, mg in enumerate(grads.get("meshes", ())):
+        out.update({f"mesh{slot}.{f}": g for f, g in mg.items()})
+    return out
+
+
+def grad_deviation(a, b):
+    """Per field, the largest |a - b| over the largest |a| (1e-6 at least)."""
+    a, b = flat_grads(a), flat_grads(b)
+    return {f: float((a[f].double().cpu() - b[f].double().cpu()).abs().max())
+            / max(float(a[f].abs().max()), 1e-6) for f in a}
+
+
+class ChoiceLog:
+    """The per-bounce winning entity and alive flags of the first
+    ``n_bounces`` traced bounces (a checkpointed step recomputes each bounce
+    in its backward pass: only the forward's are kept)."""
+
+    def __init__(self, W, n_bounces):
+        self.W, self.n = W, n_bounces
+        self.entity, self.alive = [], []
+        self.real = (W.intersect_scene, W.trace_step)
+
+    def __enter__(self):
+        real_isect, real_step = self.real
+
+        def isect(*a, **kw):
+            rec = real_isect(*a, **kw)
+            if len(self.entity) < self.n:
+                self.entity.append(rec.entity.detach().cpu())
+            return rec
+
+        def step(*a, **kw):
+            st = real_step(*a, **kw)
+            if len(self.alive) < self.n:
+                self.alive.append(st.alive.detach().cpu())
+            return st
+
+        self.W.intersect_scene, self.W.trace_step = isect, step
+        return self
+
+    def __exit__(self, *exc):
+        self.W.intersect_scene, self.W.trace_step = self.real
+
+
+def card_against_cpu(where, T, world, bins, cfg, o, d, seed):
+    """The differentiable step at WSTEP_N_CPU rays, no compaction, on the card
+    and on CPU tensors (the plain versions of the kernels), on the same
+    host-drawn uniforms. The lanes whose per-bounce entity and alive flags
+    differ are masked on both sides (their target is the run's own
+    radiance, so they add nothing to the loss or the gradient); at most
+    MAX_FLIP of them. Loss within CPU_LOSS_RTOL, each gradient field within
+    CPU_GRAD_TOL of its largest entry."""
+    from source_tpu_torch.tracer import wavefront as W
+    cfg = dataclasses.replace(cfg, compact_schedule=())
+    step = max(1, o.shape[0] // WSTEP_N_CPU)
+    o, d = o[::step][:WSTEP_N_CPU].cpu(), d[::step][:WSTEP_N_CPU].cpu()
+    spectral = T.SpectralConfig(375.0, 740.0, bins)
+    scenes_by = {"cuda": T.compile_scene(world, spectral),
+                 "cpu": T.compile_scene(world, spectral, device="cpu")}
+    n_u = W._n_uniforms(scenes_by["cpu"])
+    u_host = torch.rand((cfg.max_iters, o.shape[0], n_u),
+                        generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    for dev, scene in scenes_by.items():
+        u_dev = u_host.to(dev)
+
+        def same_u(start, n_steps, n_lanes, u_dev=u_dev):
+            return u_dev[start:start + n_steps, :n_lanes]
+
+        with ChoiceLog(W, cfg.max_iters) as log:
+            rad = T.render_batch(scene, cfg, o, d, u_all=same_u,
+                                 differentiable=True, device=dev).radiance
+        runs[dev] = dict(scene=scene, u=same_u, rad=rad.detach(),
+                         entity=torch.stack(log.entity),
+                         alive=torch.stack(log.alive))
+    agree = ((runs["cuda"]["entity"] == runs["cpu"]["entity"])
+             & (runs["cuda"]["alive"] == runs["cpu"]["alive"])).all(0)
+    masked = int((~agree).sum())
+    if masked > MAX_FLIP * o.shape[0]:
+        fail(f"{where}: {masked} of {o.shape[0]} lanes choose otherwise on "
+             "the card than on the CPU")
+    out = {}
+    for dev, r in runs.items():
+        target = torch.where(agree.to(dev)[:, None], 0.0, r["rad"])
+        out[dev] = T.render_loss_and_grads(r["scene"], cfg, o, d, target,
+                                           u_all=r["u"], device=dev)
+    loss_c, loss_p = float(out["cuda"][0]), float(out["cpu"][0])
+    dev_ = grad_deviation(out["cpu"][1], out["cuda"][1])
+    res = dict(rays=o.shape[0], bounces=cfg.max_iters, masked_lanes=masked,
+               loss_card=loss_c, loss_cpu=loss_p,
+               loss_rel_dev=abs(loss_c - loss_p) / abs(loss_p),
+               grad_deviation=dev_)
+    if not abs(loss_c - loss_p) <= CPU_LOSS_RTOL * abs(loss_p):
+        fail(f"{where}: card against CPU, loss {loss_c} against {loss_p}")
+    for f, x in dev_.items():
+        if x > CPU_GRAD_TOL:
+            fail(f"{where}: card against CPU, gradient of {f} differs by {x} "
+                 "of its largest entry")
+    return res
+
+
+def kernel_device_ms(fn):
+    """Device milliseconds of the kernels launched under ``fn()``, per
+    kernel name, by ``torch.profiler`` (CUPTI), and their total."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.key] = per.get(ev.key, 0.0) + dt / 1e3
+    return per, sum(per.values())
+
+
+def wstep_case(name, T, fused, scene, cfg, o, d, bins, nonzero,
+               mesh_nonzero, rad_vol_of=None):
+    """One scene's differentiable wavefront step at full width, at
+    remat_block 1 and 0, with its gates, walls, peak memory, and the
+    card against the CPU."""
+    from source_tpu_torch.tracer import wavefront as W
+    n = o.shape[0]
+    if fused.scene_tables(scene, cfg, general=True) is not None:
+        fail(f"{name}: the scene should be outside the fused route")
+    target = torch.zeros((n, bins), device="cuda")
+    # kernel launches a traced bounce: K6 once in intersect_scene where the
+    # scene has BVH tables, the mesh kernel once per mesh there and once per
+    # closed mesh whose material is a volume (the midpoint probe)
+    k6 = int(scene.leaf_bvh is not None)
+    k7 = len(scene.meshes) + sum(
+        1 for v in scene.volume_entities
+        if v[5] >= 0 and scene.meshes[v[5]].closed)
+    runs, peak, launches = {}, {}, {}
+    for rb in (1, 0):
+        c = dataclasses.replace(cfg, remat_block=rb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        gen = torch.Generator(device="cuda").manual_seed(WSTEP_SEED)
+        loss, grads = T.render_loss_and_grads(scene, c, o, d, target, gen)
+        torch.cuda.synchronize()
+        launches[rb] = read_counts(fused)
+        peak[rb] = torch.cuda.max_memory_allocated() - base
+        passes = 2 if rb else 1  # the forward and the checkpoint's recompute
+        want = dict(NO_LAUNCHES,
+                    analytic_bvh_winner=k6 * passes * cfg.max_iters,
+                    mesh_bvh_winner=k7 * passes * cfg.max_iters)
+        if launches[rb] != want:
+            fail(f"{name}[remat_block={rb}]: launches {launches[rb]}, want "
+                 f"{want}")
+        grad_gates(f"{name}[remat_block={rb}]", scene, loss, grads, nonzero,
+                   mesh_nonzero)
+        if any(t.requires_grad for t in (scene.leaf_w2l, scene.mat_spectra)):
+            fail(f"{name}: the caller's scene was left requiring gradients")
+        runs[rb] = (loss, grads)
+    (l1, g1), (l0, g0) = runs[1], runs[0]
+    if not abs(float(l1) - float(l0)) <= REMAT_LOSS_RTOL * abs(float(l0)):
+        fail(f"{name}: loss at remat_block 1 {float(l1)}, at 0 {float(l0)}")
+    remat_dev = grad_deviation(g0, g1)
+    for f, x in remat_dev.items():
+        if x > REMAT_GRAD_TOL:
+            fail(f"{name}: gradient of {f} differs between remat_block 1 and "
+                 f"0 by {x} of its largest entry")
+    rad_cross = 0.0
+    if rad_vol_of is not None:
+        rad_cross = rad_vol_of(scene, cfg, o, d)
+    euler = euler_ratio(scene, l1, g1, rad_cross)
+    if abs(euler - 1.0) > EULER_TOL:
+        fail(f"{name}: Euler identity on the emission rows: "
+             f"sum(value * gradient) / (2 loss) = {euler}")
+
+    def walls(fn):
+        out = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out[1:])), out[1:]
+
+    def step(rb):
+        return lambda: T.render_loss_and_grads(
+            scene, dataclasses.replace(cfg, remat_block=rb), o, d, target,
+            torch.Generator(device="cuda").manual_seed(WSTEP_SEED))
+
+    wall = {rb: walls(step(rb)) for rb in (1, 0)}
+    fwd_wall = walls(lambda: T.render_batch(
+        scene, cfg, o, d,
+        torch.Generator(device="cuda").manual_seed(WSTEP_SEED)))
+    return dict(rays=n, bins=bins, max_depth=cfg.max_depth,
+                max_iters=cfg.max_iters, compact_schedule=cfg.compact_schedule,
+                loss=float(l1), euler=euler, launches=launches,
+                launches_per_bounce=dict(analytic_bvh_winner=k6,
+                                         mesh_bvh_winner=k7),
+                remat_loss_rel_dev=abs(float(l1) - float(l0)) / abs(float(l0)),
+                remat_grad_deviation=remat_dev,
+                grad_max={f: float(g.abs().max())
+                          for f, g in flat_grads(g1).items()},
+                step_wall_ms={rb: w[0] for rb, w in wall.items()},
+                step_walls_ms={rb: w[1] for rb, w in wall.items()},
+                peak_bytes=peak, forward_wall_ms=fwd_wall[0],
+                forward_walls_ms=fwd_wall[1],
+                step=step(1))
+
+
+def add_kernel_times(cases):
+    """K6's and K7's device time inside one step at remat_block 1, by the
+    profiler; both kernels are named ``winner_kernel``, and the CSG demo's
+    step launches K6 alone, which tells their signatures apart."""
+    per = {k: kernel_device_ms(row.pop("step")) for k, row in cases.items()}
+    if not all(total > 0.0 for _, total in per.values()):
+        fail(f"wstep: the profiler saw no device time: {per}")
+    k6_keys = {k for k in per["csg"][0] if "winner_kernel" in k}
+    for name, (ms, total) in per.items():
+        cases[name]["kernel_ms_in_step"] = dict(
+            analytic_bvh_winner=sum(v for k, v in ms.items() if k in k6_keys),
+            mesh_bvh_winner=sum(v for k, v in ms.items()
+                                if "winner_kernel" in k and k not in k6_keys))
+        cases[name]["profiler_device_ms_total"] = total
+
+
+def phase_wstep(T, fused, scenes):
+    """The training step through the wavefront route: the CSG demo and the
+    mesh demo at full width."""
+    cases = {}
+    scene, cfg, o, d = csg_setup(T, scenes)
+    cases["csg"] = wstep_case("wstep/csg", T, fused, scene, cfg, o, d,
+                              CSG["bins"],
+                              ("leaf_w2l", "leaf_params", "mat_spectra"), ())
+    cases["csg"]["card_against_cpu"] = card_against_cpu(
+        "wstep/csg", T, scenes.csg_world(), CSG["bins"], cfg, o, d, 31)
+    scene, cfg, o, d = mesh_setup(T, scenes)
+    cases["mesh"] = wstep_case("wstep/mesh", T, fused, scene, cfg, o, d,
+                               MESH["bins"],
+                               ("leaf_w2l", "leaf_params", "mat_spectra"),
+                               ("vertices", "w2l"))
+    cases["mesh"]["card_against_cpu"] = card_against_cpu(
+        "wstep/mesh", T, scenes.mesh_world(), MESH["bins"], cfg, o, d, 32)
+    add_kernel_times(cases)
+    emit("wstep", cases=cases,
+         tolerance=dict(remat_loss_rtol=REMAT_LOSS_RTOL,
+                        remat_grad=REMAT_GRAD_TOL, cpu_loss_rtol=CPU_LOSS_RTOL,
+                        cpu_grad=CPU_GRAD_TOL, euler=EULER_TOL,
+                        max_masked=MAX_FLIP))
+    return {k: v["launches"][1] for k, v in cases.items()}
+
+
+def volume_cross(T, scene, cfg, o, d):
+    """mean(radiance * the inhomogeneous volumes' part of it) on the step's
+    uniforms: the forward route once as it is and once with every emission
+    row zeroed, which leaves the volumes' part alone (the rows do not steer
+    a path)."""
+    from source_tpu_torch.tracer import wavefront as W
+    dark = scene.mat_spectra.clone()
+    for m, k in emission_rows(scene):
+        dark[m, k] = 0.0
+    rad = {}
+    for key, s in (("all", scene),
+                   ("volume", dataclasses.replace(scene, mat_spectra=dark))):
+        gen = torch.Generator(device="cuda").manual_seed(WSTEP_SEED)
+        rad[key] = W.trace_rays(s, cfg, T.init_rays(o, d, s.bins),
+                                gen).radiance
+    return float((rad["all"] * rad["volume"]).mean())
+
+
+def phase_modifiers(T, fused, scenes):
+    """The modifiers, user BSDFs and the inhomogeneous volume on the
+    wavefront route: ``modifier_world`` at the CSG demo's camera and ray
+    configuration, forward and differentiable."""
+    from source_tpu_torch.tracer import intersect as I
+    from source_tpu_torch.tracer import wavefront as W
+    bins = CSG["bins"]
+    scene = T.compile_scene(scenes.modifier_world(),
+                            T.SpectralConfig(375.0, 740.0, bins))
+    cfg = csg_setup_cfg(T)
+    o, d = scenes.camera_rays(MOD_RAYS, MOD_RAYS, CSG["fov"], CSG["position"])
+    o, d = torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
+    n = o.shape[0]
+    if fused.scene_tables(scene, cfg) is not None:
+        fail("modifiers: modifier_world should be outside the fused route")
+    if not (scene.mix_remaps and scene.custom_materials and scene.has_roughen
+            and any(v[2] == 3 for v in scene.volume_entities)):
+        fail("modifiers: modifier_world lacks one of its paths")
+
+    # forward: one render_batch, trace_step calls counted beside the launches
+    calls = [0]
+    real_step = W.trace_step
+
+    def counting_step(*a, **kw):
+        calls[0] += 1
+        return real_step(*a, **kw)
+
+    W.trace_step = counting_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fused)
+        gen = torch.Generator(device="cuda").manual_seed(WSTEP_SEED)
+        st = T.render_batch(scene, cfg, o, d, gen)
+        torch.cuda.synchronize()
+        launches = read_counts(fused)
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        W.trace_step = real_step
+    if launches != dict(NO_LAUNCHES, analytic_bvh_winner=calls[0]) or not (
+            1 <= calls[0] <= cfg.max_iters):
+        fail(f"modifiers: want one analytic_bvh_winner launch per traced "
+             f"bounce ({calls[0]}) and nothing else: {launches}")
+    rad = st.radiance
+    if tuple(rad.shape) != (n, bins) or not bool(torch.isfinite(rad).all()):
+        fail("modifiers: radiance has the wrong shape or is not finite")
+    # every material's lanes (by the entity the camera ray hits first)
+    # receive radiance
+    with torch.no_grad():
+        first = I.intersect_scene(scene, o, d, need_grad=False).entity
+    lit = {}
+    for e in range(scene.n_entities):
+        m = first == e
+        lit[e] = dict(
+            material=scene.mat_types[scene.entity_material_static[e]],
+            lanes=int(m.sum()),
+            mean_radiance=float(rad[m].mean()) if bool(m.any()) else 0.0)
+        if not lit[e]["mean_radiance"] > 0.0:
+            fail(f"modifiers: the lanes of entity {e} receive no radiance: "
+                 f"{lit[e]}")
+    case = wstep_case("modifiers", T, fused, scene, cfg, o, d, bins,
+                      ("leaf_w2l", "leaf_params", "mat_spectra",
+                       "entity_w2l"), (),
+                      rad_vol_of=lambda *a: volume_cross(T, *a))
+    case["card_against_cpu"] = card_against_cpu(
+        "modifiers", T, scenes.modifier_world(), bins, cfg, o, d, 33)
+    case.pop("step")
+    emit("modifiers", forward=dict(
+        rays=n, traced_bounces=calls[0], launches=launches,
+        segments=int(st.segments), overflow=int(st.overflow),
+        mean_radiance_per_bin=[round(float(x), 5) for x in rad.mean(0)],
+        peak_bytes=fwd_peak, first_hit=lit), step=case)
+    return dict(forward=launches, step=case["launches"][1])
+
+
 def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
-                 wave_launches, mesh_rows, mesh_launches):
+                 wave_launches, mesh_rows, mesh_launches, wstep, mods):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -2618,7 +3046,9 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
     launches as often again), ``render_loss_and_grads`` for the adjoints;
     the kernel-RNG branches of the span kernels those of ``render_batch``
     and ``render_loss_and_grads`` with ``rng="kernel"``, and the profiling
-    kernels those of the fusedprof chains."""
+    kernels those of the fusedprof chains. The rows of K6 and K7 also carry
+    ``step_launches``: their launches in one differentiable wavefront step at
+    remat_block 1 (phases wstep and modifiers)."""
     src = "source_tpu_torch/csrc/"
     rows = []
     for name, m, line, source, count in (
@@ -2690,7 +3120,10 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
         launches=wave_launches["analytic_bvh_winner"],
         max_abs_err=bvh_row["max_abs"], ms=bvh_row["ms"],
         plain_ms=bvh_row["plain_ms"], bound_ms=bvh_row["bound_ms"],
-        bound_by=bvh_row["bound_by"], library_ms=None))
+        bound_by=bvh_row["bound_by"], library_ms=None,
+        step_launches=dict(
+            {k: v["analytic_bvh_winner"] for k, v in wstep.items()},
+            modifiers=mods["step"]["analytic_bvh_winner"])))
     # the mesh kernel: at the demo camera's rays on its torus knot, with the
     # launches of the mesh demo's render_batch (K7's size), and on the
     # 1.31M-triangle icosphere with the launches of the big-mesh world's
@@ -2708,6 +3141,7 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
                             row["max_abs_dv"]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
+    rows[-2]["step_launches"] = dict(mesh=wstep["mesh"]["mesh_bvh_winner"])
     return {"kernels": rows}
 
 
@@ -2716,7 +3150,7 @@ def main():
     ap.add_argument("--phases",
                     default="env,kernels,furnace,main,grad_kernels,step,"
                             "krng,fusedprof,bvh_kernels,wavefront,"
-                            "mesh_kernels,mesh_furnace,mesh")
+                            "mesh_kernels,mesh_furnace,mesh,wstep,modifiers")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2729,7 +3163,7 @@ def main():
     t_start = time.perf_counter()
     cornell = grad = launches = step_launches = krng = prof = None
     bvh_row = wave = None
-    mesh_rows = mesh_launches = None
+    mesh_rows = mesh_launches = wstep = mods = None
     mesh_furnace = False
     if "env" in phases:
         phase_env(fused, analytic_bvh)
@@ -2758,15 +3192,20 @@ def main():
         mesh_furnace = True
     if "mesh" in phases:
         mesh_launches = phase_mesh(T, fused, scenes)
+    if "wstep" in phases:
+        wstep = phase_wstep(T, fused, scenes)
+    if "modifiers" in phases:
+        mods = phase_modifiers(T, fused, scenes)
     emit("total", seconds=time.perf_counter() - t_start)
     if None in (cornell, grad, launches, step_launches, krng, prof, bvh_row,
-                wave, mesh_rows, mesh_launches) or not mesh_furnace:
+                wave, mesh_rows, mesh_launches, wstep,
+                mods) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
                                   krng, prof, bvh_row, wave, mesh_rows,
-                                  mesh_launches)),
+                                  mesh_launches, wstep, mods)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,17 +5,19 @@ NVIDIA Hopper: the scenegraph compiles to flat SoA device tensors and path
 tracing runs as a wavefront. It keeps the directory layout and names of
 ``source_tpu`` so a reader finds each counterpart.
 
-Covered so far: analytic scenes and triangle meshes with built-in
-materials, Beer-Lambert and homogeneous volumes. Forward, ``compile_scene``
--> ``render_batch``/``trace_rays`` takes the fused route (one bounce kernel)
-for simple-entity scenes and the wavefront route (``trace_step``: the
-analytic-BVH and mesh kernels, then the volume and surface stages as tensor
-programs) for the rest, CSG and meshes among them. Differentiable, ``render_loss_and_grads`` -> ``trace_rays_diff``
-returns the gradient of an L2 loss with respect to every float table of a
-scene the fused route takes. Entry points take ``device=`` and default to
-``"cuda"``; they raise if no card is there. Custom BSDFs, modifiers,
-inhomogeneous volumes and the differentiable wavefront route raise
-``NotImplementedError``.
+Covered so far: analytic scenes (CSG included) and triangle meshes with the
+built-in materials, the modifiers (Roughen, Blend, Add, VolumeTransform),
+user BSDFs, and Beer-Lambert, homogeneous and inhomogeneous volumes.
+``compile_scene`` -> ``render_batch``/``trace_rays`` takes the fused route
+(one bounce kernel) for simple-entity scenes with built-in materials and the
+wavefront route (``trace_step``: the analytic-BVH and mesh kernels, then the
+volume and surface stages as tensor programs) for the rest.
+``render_loss_and_grads`` -> ``trace_rays_diff`` returns the gradient of an
+L2 loss with respect to every float table of the scene on either route (on
+the wavefront route by autograd through ``trace_step`` in checkpoint
+blocks), and with respect to each mesh's vertices, transform and normals.
+Entry points take ``device=`` and default to ``"cuda"``; they raise if no
+card is there.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,9 @@ carry yet. The packed analytic-BVH tables come across too (``arrays`` key
 so both packages intersect through the same tree. So do the meshes
 (``arrays`` key ``"meshes"``: one dict per mesh of the MESH_ARRAYS as numpy
 arrays and the MESH_STATIC as plain values); the JAX package's TPU packing
-of a mesh is not carried.
+of a mesh is not carried. A scene's user BSDFs and inhomogeneous volume
+emitters are code, written once in each package in its own array library:
+``materials`` hands this package's objects for those material rows.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .compiler.scene import CompiledScene, resolve_device
+from .optical.material.base import VOL_INHOMOGENEOUS
 from .tracer.meshtrace import MeshTables
 
 __all__ = ["scene_from_numpy", "ARRAY_FIELDS", "STATIC_FIELDS", "BVH_TABLES",
@@ -44,12 +47,19 @@ _MESH_INT = ("triangles", "node_skip", "node_first", "node_count")
 MESH_STATIC = ("n_nodes", "max_leaf", "smoothing", "closed")
 
 
-def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
+def scene_from_numpy(arrays: dict, static: dict, device="cuda",
+                     materials=None):
     """CompiledScene from ``arrays`` (name -> numpy array, ARRAY_FIELDS) and
     ``static`` (name -> plain Python value, STATIC_FIELDS), and the BVH
     tables under ``arrays["leaf_bvh"]`` and the meshes under
-    ``arrays["meshes"]`` when the scene has them. Rows of
-    ``volume_entities`` carry ``None`` in place of the material object."""
+    ``arrays["meshes"]`` when the scene has them.
+
+    ``materials`` maps a material index to this package's material object
+    for that row: it takes the place of the object in the rows of
+    ``custom_materials`` and ``volume_entities`` (whose static values may
+    hold another package's objects, or ``None``). Every row of
+    ``custom_materials`` and every inhomogeneous volume needs one: the
+    tracer calls their methods."""
     device = resolve_device(device)
     missing = [k for k in ARRAY_FIELDS if k not in arrays]
     missing += [k for k in STATIC_FIELDS if k not in static]
@@ -78,5 +88,18 @@ def scene_from_numpy(arrays: dict, static: dict, device="cuda"):
     def frozen(v):
         return tuple(frozen(x) for x in v) if isinstance(v, (list, tuple)) else v
 
-    return CompiledScene(**tensors, leaf_bvh=bvh, meshes=meshes,
-                         **{k: frozen(static[k]) for k in STATIC_FIELDS})
+    fields = {k: frozen(static[k]) for k in STATIC_FIELDS}
+    materials = dict(materials or {})
+    need = ([i for i, _ in fields["custom_materials"]]
+            + [r[1] for r in fields["volume_entities"]
+               if r[2] == VOL_INHOMOGENEOUS])
+    missing = sorted(set(need) - set(materials))
+    if missing:
+        raise KeyError(f"scene_from_numpy: materials= has no object for the "
+                       f"user BSDF or inhomogeneous volume rows {missing}")
+    fields["custom_materials"] = tuple(
+        (i, materials[i]) for i, _ in fields["custom_materials"])
+    fields["volume_entities"] = tuple(
+        r[:3] + (materials.get(r[1], r[3]),) + r[4:]
+        for r in fields["volume_entities"])
+    return CompiledScene(**tensors, leaf_bvh=bvh, meshes=meshes, **fields)

@@ -25,7 +25,9 @@ __all__ = [
     "transform_vector",
     "transform_normal",
     "make_frame",
+    "to_frame",
     "from_frame",
+    "lerp",
     "reflect",
     "safe_sqrt",
 ]
@@ -105,9 +107,18 @@ def make_frame(normal):
     return t, bt, n
 
 
+def to_frame(v, t, b, n):
+    """World -> surface frame: the components of v along (t, b, n)."""
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
 def from_frame(v, t, b, n):
     """Surface -> world frame."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
 
 
 def reflect(d, n):

@@ -11,6 +11,7 @@ from .emitter import (
     UnityVolumeEmitter, InhomogeneousVolumeEmitter, VolumeIntegrator,
     NumericalIntegrator,
 )
+from .modifiers import Roughen, Blend, Add, VolumeTransform
 from .debug import Light, PerfectReflectingSurface
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "UnitySurfaceEmitter", "AnisotropicSurfaceEmitter", "Checkerboard",
     "HomogeneousVolumeEmitter", "UniformVolumeEmitter", "UnityVolumeEmitter",
     "InhomogeneousVolumeEmitter", "VolumeIntegrator", "NumericalIntegrator",
+    "Roughen", "Blend", "Add", "VolumeTransform",
     "Light", "PerfectReflectingSurface",
 ]

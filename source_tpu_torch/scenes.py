@@ -11,24 +11,34 @@ the BVH kernel in a tree of some 130 nodes. ``mesh_world`` is the mesh demo
 of the reference's suite (demos/mesh_render.py): a dispersive-glass
 icosphere and a rough-metal torus knot over Lambert walls under an emitting
 box; ``big_mesh_world`` puts the 1.31M-triangle icosphere of
-benchmarks/bigmesh.py in place of the glass icosphere.
+benchmarks/bigmesh.py in place of the glass icosphere. ``modifier_world``
+holds every material path that only the wavefront route traces: Blend and
+Add mixes, a Roughen, two user BSDFs (``UserLambert``, ``UserMirror``) and
+an inhomogeneous volume emitter (``glow``) inside a ``VolumeTransform``.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from .core import Point3D, rotate, rotate_x, translate
+from .core.math.batch import safe_sqrt
 from .core.scenegraph import Node, World
 from .optical import InterpolatedSF
 from .optical import ConstantSF
 from .optical.library import d65_white, schott
 from .primitive import Mesh
 from .optical.material import (
-    AbsorbingSurface, AnisotropicSurfaceEmitter, Checkerboard, Conductor,
-    Lambert, NullSurface, PerfectReflectingSurface, RoughConductor,
-    UniformSurfaceEmitter, UniformVolumeEmitter, UnitySurfaceEmitter,
+    AbsorbingSurface, Add, AnisotropicSurfaceEmitter, Blend, Checkerboard,
+    Conductor, ContinuousBSDF, DiscreteBSDF, InhomogeneousVolumeEmitter,
+    Lambert, NullSurface, NumericalIntegrator, PerfectReflectingSurface,
+    RoughConductor, Roughen, UniformSurfaceEmitter, UniformVolumeEmitter,
+    UnitySurfaceEmitter, VolumeTransform,
 )
+from .optical.material.base import NSLOTS
 from .primitive import (
     Box, Cone, Cylinder, Intersect, Parabola, Sphere, Subtract, Torus, Union,
 )
@@ -36,6 +46,7 @@ from .primitive import (
 __all__ = ["cornell_box", "zoo", "furnace", "csg_world", "leaf_field",
            "icosphere", "torus_knot", "mesh_world", "big_mesh_world",
            "cube_mesh", "blob_mesh", "watertight_cases", "MESH_CAMERA",
+           "modifier_world", "UserLambert", "UserMirror", "glow",
            "pinhole_rays", "camera_rays", "scatter_rays", "field_rays"]
 
 
@@ -214,6 +225,98 @@ def csg_world():
 
 
 FIELD_SIDE = 7  # cells per axis of leaf_field's grid, 1.0 apart
+
+
+class UserLambert(ContinuousBSDF):
+    """A cosine-hemisphere Lambert written against the ContinuousBSDF
+    contract: it traces as the built-in Lambert does (the same uniforms, the
+    same one-sample MIS weight)."""
+
+    def __init__(self, reflectivity=0.5):
+        super().__init__()
+        self._reflectivity = ConstantSF(reflectivity)
+
+    def compile_spectra(self, min_wavelength, max_wavelength, bins):
+        out = np.zeros((NSLOTS, bins))
+        out[0] = self._reflectivity.sample(min_wavelength, max_wavelength,
+                                           bins)
+        return out
+
+    def sample(self, w_in, u1, u2, spectra, params, back_face):
+        z = safe_sqrt(u1)
+        r = safe_sqrt(1.0 - u1)
+        phi = 2.0 * math.pi * u2
+        return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+    def pdf(self, w_in, w_out, spectra, params, back_face):
+        return torch.clamp(w_out[:, 2], min=0.0) / math.pi
+
+    def bsdf(self, w_in, w_out, wavelengths, spectra, params, back_face):
+        # reflective only: zero below the hemisphere (lambert.pyx:85)
+        up = (w_out[:, 2] > 0.0)[:, None]
+        return torch.where(up, spectra[:, 0, :] / math.pi, 0.0)
+
+
+class UserMirror(DiscreteBSDF):
+    """A lossless mirror written against the DiscreteBSDF contract: it traces
+    as PerfectReflectingSurface does."""
+
+    def evaluate_shading(self, w_in, u, wavelengths, spectra, params,
+                         back_face):
+        w_out = torch.stack([-w_in[:, 0], -w_in[:, 1], w_in[:, 2]], dim=-1)
+        weight = torch.ones((w_in.shape[0], wavelengths.shape[0]),
+                            dtype=w_in.dtype, device=w_in.device)
+        transmitted = torch.zeros(w_in.shape[0], dtype=torch.bool,
+                                  device=w_in.device)
+        return w_out, weight, transmitted
+
+
+def glow(p_local, d_local, wavelengths):
+    """The emission density of ``modifier_world``'s inhomogeneous volume: a
+    Gaussian ball, brighter toward +z and toward the red, W/m3/str/nm,
+    [..., bins]."""
+    r2 = (p_local * p_local).sum(-1)
+    rho = 3.0 * torch.exp(-2.0 * r2) * (
+        1.0 + 0.5 * torch.sin(3.0 * p_local[..., 2]))
+    return rho[..., None] * (wavelengths / 550.0)
+
+
+def modifier_world():
+    """Every material path of the wavefront route that the fused route does
+    not take, in front of the CSG demo's camera (``camera_rays`` at (0, 0,
+    -4), fov 75): a Blend of two Lamberts, an Add of two emitters, a Roughen
+    around a smooth conductor, a user ContinuousBSDF (``UserLambert``) and a
+    user DiscreteBSDF (``UserMirror``), and the ``glow`` inhomogeneous
+    volume emitter inside a ``VolumeTransform``, in a closed Lambert room lit
+    by an emitting panel."""
+    world = World()
+    Box(Point3D(-6, -4, -6), Point3D(6, 4, 7), parent=world,
+        material=Lambert(ConstantSF(0.5)))
+    Box(Point3D(-2, 3.6, 0), Point3D(2, 3.8, 4), parent=world,
+        material=UniformSurfaceEmitter(
+            InterpolatedSF([400, 700], [2.0, 3.0])))
+    Sphere(0.9, parent=world, transform=translate(-2.4, 1.3, 2.5),
+           material=Blend(Lambert(ConstantSF(0.8)),
+                          Lambert(InterpolatedSF([400, 700], [0.1, 0.7])),
+                          0.3))
+    Sphere(0.9, parent=world, transform=translate(0.0, 1.3, 2.5),
+           material=Add(UniformSurfaceEmitter(ConstantSF(0.5)),
+                        UniformSurfaceEmitter(
+                            InterpolatedSF([400, 700], [1.0, 0.2]))))
+    Box(Point3D(-0.8, -0.8, -0.8), Point3D(0.8, 0.8, 0.8), parent=world,
+        transform=translate(2.4, 1.3, 2.5) * rotate(30, 20, 0),
+        material=Roughen(Conductor(ConstantSF(0.9), ConstantSF(6.0)), 0.3))
+    Sphere(0.9, parent=world, transform=translate(-2.4, -1.3, 2.5),
+           material=UserLambert(0.6))
+    Box(Point3D(-0.8, -0.8, -0.8), Point3D(0.8, 0.8, 0.8), parent=world,
+        transform=translate(0.0, -1.3, 2.5) * rotate(-25, 15, 0),
+        material=UserMirror())
+    Sphere(0.9, parent=world, transform=translate(2.4, -1.3, 2.5),
+           material=VolumeTransform(
+               InhomogeneousVolumeEmitter(
+                   glow, NumericalIntegrator(step=0.1, max_samples=16)),
+               translate(0.0, 0.0, 0.3)))
+    return world
 
 
 def leaf_field(n_simple=256, n_lens=8, seed=0):

@@ -5,26 +5,25 @@ Replacement for the reference's recursive estimator (optical/ray.pyx:338-455
 iterative loop over bounce depth with a ray-state SoA; Russian roulette,
 one-sample MIS (material.pyx:327-352), the dielectric path roulette
 (dielectric.pyx:248-302) and volume responses (Beer-Lambert
-dielectric.pyx:313-328, homogeneous emitters) all preserve the reference's
-exact estimator so images converge to the same answer.
+dielectric.pyx:313-328, homogeneous and inhomogeneous emitters) all preserve
+the reference's exact estimator so images converge to the same answer.
 
 Two routes share the loop over spans and its stream compaction:
 
   * the fused route (tracer/fused.py): every span of bounces goes through
     the hand-written bounce kernels on the card, forward and adjoint, or
-    their plain PyTorch versions for CPU tensors. ``trace_rays`` takes it
-    for every scene ``fused.scene_tables`` accepts; ``trace_rays_diff``
-    needs it;
+    their plain PyTorch versions for CPU tensors. ``trace_rays`` and
+    ``trace_rays_diff`` take it for every scene ``fused.scene_tables``
+    accepts;
   * the wavefront route: one ``trace_step`` per bounce, its stages separate
-    tensor programs — ``intersect_scene`` (tracer/intersect.py, with the
-    analytic-BVH kernel on the card), the volume stage and the material
-    dispatch — for the scenes the fused route rejects (CSG and meshes) and,
+    tensor programs -- ``intersect_scene`` (tracer/intersect.py, with the
+    analytic-BVH and mesh kernels on the card), the volume stage and the
+    material dispatch -- for the scenes the fused route rejects (CSG,
+    meshes, the material modifiers, user BSDFs, inhomogeneous volumes) and,
     on request (``route="wavefront"``), for any scene. It rounds the
     spectral state to its dtype after every bounce, as the reference's
-    ``trace_step`` does; the fused span does not.
-
-Custom BSDFs, the Roughen modifier, Blend/Add mixes, inhomogeneous volumes
-and the differentiable wavefront route raise ``NotImplementedError``.
+    ``trace_step`` does; the fused span does not. ``trace_rays_diff`` runs
+    it under autograd, ``cfg.remat_block`` bounces to a checkpoint.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..compiler.scene import CompiledScene, _program_to_closure
 from ..core.math import batch as vmath
@@ -40,6 +40,7 @@ from ..optical.material.base import (
     MAT_CHECKERBOARD,
     MAT_CONDUCTOR,
     MAT_DIELECTRIC,
+    MAT_DISCRETE_BSDF,
     MAT_EMITTER,
     MAT_EMITTER_ANISO,
     MAT_LAMBERT,
@@ -47,6 +48,7 @@ from ..optical.material.base import (
     MAT_NULL,
     MAT_PERFECT_REFLECT,
     MAT_ROUGH_CONDUCTOR,
+    ROUGHEN_SLOT,
     VOL_BEER,
     VOL_HOMOGENEOUS,
     VOL_INHOMOGENEOUS,
@@ -81,6 +83,11 @@ class RayConfig:
     # per-bounce route only: True stops once every lane is dead (one host
     # sync per bounce); False runs every bounce of the span
     early_exit: bool = True
+    # the differentiable wavefront route's bounces per checkpoint block
+    # (torch.utils.checkpoint): a block keeps its entry state and recomputes
+    # its bounces in the backward pass; 0 keeps every bounce's intermediates
+    # (no recompute). The fused route has no use for it.
+    remat_block: int = 1
     # storage dtype for the spectral path state (throughput/radiance):
     # "float32" (default, bit-faithful to the reference estimator) or
     # "bfloat16" (halves the state between spans; the bounce arithmetic
@@ -207,12 +214,20 @@ def _check_rng(rng, u_all, seeds):
         raise ValueError("seeds= is the kernel RNG's: pass rng='kernel'")
 
 
-def _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng, seeds):
+def _n_uniforms(scene: CompiledScene):
+    """Uniform draws per bounce on the wavefront route: 10, and 6 more when
+    a Roughen modifier is present (its four rejection tries read columns 8
+    to 15)."""
+    return 16 if scene.has_roughen else 10
+
+
+def _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng, seeds,
+                 n_uniforms):
     """The loop over spans both tracers share: ``run_span(st, start,
     n_steps, u, seed)`` traces one span of ``n_steps`` bounces from absolute
-    bounce ``start``, with the host's uniforms ``u`` [n_steps, N, 10]
-    (``rng="host"``, ``seed`` None) or the span's i32[2] kernel seed
-    (``rng="kernel"``, ``u`` None); between the spans of
+    bounce ``start``, with the host's uniforms ``u`` [n_steps, N,
+    n_uniforms] (``rng="host"``, ``seed`` None) or the span's i32[2] kernel
+    seed (``rng="kernel"``, ``u`` None); between the spans of
     ``cfg.compact_schedule`` the batch partitions alive-first and shrinks.
     Gathers and scatters are out of place, so autograd can follow them."""
     dev = state.origin.device
@@ -230,7 +245,7 @@ def _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng, seeds):
         if u_all is not None:
             u = u_all(start, nsteps, n)
         else:
-            u = torch.rand((nsteps, n, fused.N_UNIFORMS), generator=generator,
+            u = torch.rand((nsteps, n, n_uniforms), generator=generator,
                            dtype=torch.float32, device=dev)
         return run_span(st, start, nsteps, u, None)
 
@@ -275,8 +290,10 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
 
     ``generator`` is the ``torch.Generator`` (on the state's device) the
     bounce uniforms and compaction rotations are drawn from, one
-    ``[n_steps, N, 10]`` draw per span. ``u_all`` instead supplies them: a
-    callable ``u_all(start, n_steps, n_lanes)`` returning that tensor (parity
+    ``[n_steps, N, 10]`` draw per span (16 columns on the wavefront route
+    when the scene holds a Roughen modifier). ``u_all`` instead supplies
+    them: a callable ``u_all(start, n_steps, n_lanes)`` returning that tensor
+    (parity
     tests inject the reference's stream this way); ``shifts`` likewise is a
     callable ``shifts(bounces_done, alive_count)`` returning the rotation of
     the compaction stage after that many bounces.
@@ -334,6 +351,7 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
                                             early_exit=cfg.early_exit,
                                             seed=seed, start=start,
                                             n_steps=n_steps)
+        n_u = fused.N_UNIFORMS
     else:
         def run_span(st, start, n_steps, u, seed):
             for u_k in u:
@@ -341,10 +359,11 @@ def trace_rays(scene: CompiledScene, cfg: RayConfig, state: RayState,
                     break
                 st = trace_step(scene, cfg, st, u_k, differentiable=False)
             return st
+        n_u = _n_uniforms(scene)
 
     with torch.no_grad():
         return _trace_spans(cfg, state, run_span, generator, u_all, shifts,
-                            rng, seeds)
+                            rng, seeds, n_u)
 
 
 def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
@@ -353,25 +372,37 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
     """Fixed-iteration differentiable variant of ``trace_rays``: every
     bounce of every span runs (no early exit), and the returned radiance
     carries an autograd graph back to the scene's float tensors (those that
-    require a gradient) through the adjoint kernels and ``pack_tabvec``.
+    require a gradient).
 
-    It traces the general leaf records (``fused.general_spec``): the forward
-    route's world-space fast records carry other transform cotangents. The
-    table is packed anew on every call, as a node of the graph; the spec and
-    the descriptor are reused. ``generator``, ``u_all``, ``shifts``, ``span``,
-    ``rng`` and ``seeds`` are those of ``trace_rays``; ``span`` defaults to
-    ``DIFF_SPAN`` under the host RNG. ``rng="kernel"`` runs the whole-span
-    route (one ``fused_span_fwd`` and one ``fused_span_bwd`` per span, which
-    keeps the span's seed, not its uniforms, for the backward); an explicit
-    ``span="perbounce"`` with it raises ``ValueError``. With
-    ``cfg.compact_schedule`` the gathers and scatters between spans are
-    differentiable, and the radiance of compacted-away lanes is already
-    final. Only the fused route is differentiable so far: any other scene
-    raises ``NotImplementedError`` (``ValueError`` under ``rng="kernel"``).
+    On the fused route it traces the general leaf records
+    (``fused.general_spec``: the forward route's world-space fast records
+    carry other transform cotangents) through the adjoint kernels and
+    ``pack_tabvec``; the table is packed anew on every call, as a node of the
+    graph, and the spec and the descriptor are reused. Every other scene
+    takes the wavefront route: ``trace_step`` under autograd, in checkpoint
+    blocks of ``cfg.remat_block`` bounces (the last block holds the
+    remainder; 0 checkpoints nothing), each block recomputed in the
+    backward pass from its entry state and its uniforms, so nothing random
+    is drawn again. The winners of the analytic-BVH and mesh kernels are
+    recomputed as tensor ops there (``intersect_scene(need_grad=True)``), so
+    the gradient reaches the leaf tables and each mesh's ``MeshTables``
+    tensors (vertices, transforms, normals).
+
+    ``generator``, ``u_all``, ``shifts``, ``span``, ``rng`` and ``seeds`` are
+    those of ``trace_rays``; ``span`` ("multi" or "perbounce") selects the
+    fused route's kernels and defaults to ``DIFF_SPAN`` under the host RNG.
+    ``rng="kernel"`` runs the fused route's whole-span kernels (one
+    ``fused_span_fwd`` and one ``fused_span_bwd`` per span, which keeps the
+    span's seed, not its uniforms, for the backward); with an explicit
+    ``span="perbounce"``, or for a scene on the wavefront route, it raises
+    ``ValueError``. With ``cfg.compact_schedule`` the gathers and scatters
+    between spans are differentiable, and the radiance of compacted-away
+    lanes is already final.
     """
     _check_rng(rng, u_all, seeds)
     if span is None:
         span = "multi" if rng == "kernel" else DIFF_SPAN
+    fused._check_span(span)
     if rng == "kernel" and span != "multi":
         raise ValueError(
             f"rng='kernel' needs span='multi' (the whole-span kernels), not "
@@ -383,9 +414,12 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
             raise ValueError(
                 "rng='kernel' needs the fused route's whole-span kernels: this "
                 "scene takes the wavefront route")
-        raise NotImplementedError(
-            "differentiable tracing of a scene outside the fused route (the "
-            "differentiable wavefront route) is not part of this package yet")
+
+        def run_span(st, start, n_steps, u, seed):
+            return _wavefront_span_diff(scene, cfg, st, u)
+
+        return _trace_spans(cfg, state, run_span, generator, u_all, shifts,
+                            rng, seeds, _n_uniforms(scene))
     fspec, entry = tables
     tab = fused.pack_tabvec(scene, fspec)
 
@@ -394,27 +428,36 @@ def trace_rays_diff(scene: CompiledScene, cfg: RayConfig, state: RayState,
                                 seed=seed, start=start, n_steps=n_steps)
 
     return _trace_spans(cfg, state, run_span, generator, u_all, shifts, rng,
-                        seeds)
+                        seeds, fused.N_UNIFORMS)
+
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(RayState))
+
+
+def _wavefront_span_diff(scene, cfg, state, u):
+    """Every bounce of a span, ``u`` [n_steps, N, n_uniforms], through
+    ``trace_step`` under autograd in checkpoint blocks of
+    ``cfg.remat_block`` bounces (the reference's ``jax.checkpoint`` of a
+    scan over a block). The state passes a block's boundary as a tuple of
+    tensors; the RNG state is not kept, since the uniforms are inputs."""
+
+    def block(us, *fields):
+        st = RayState(*fields)
+        for u_k in us:
+            st = trace_step(scene, cfg, st, u_k, differentiable=True)
+        return tuple(getattr(st, f) for f in _STATE_FIELDS)
+
+    fields = tuple(getattr(state, f) for f in _STATE_FIELDS)
+    size = int(cfg.remat_block)
+    if size <= 0:
+        return RayState(*block(u, *fields))
+    for i in range(0, u.shape[0], size):
+        fields = checkpoint(block, u[i:i + size], *fields,
+                            use_reentrant=False, preserve_rng_state=False)
+    return RayState(*fields)
 
 
 # --- the wavefront route ---------------------------------------------------------
-
-
-def _check_wavefront(scene: CompiledScene):
-    """Raise on what the wavefront route does not carry yet."""
-    if scene.custom_materials:
-        raise NotImplementedError(
-            "custom DiscreteBSDF/ContinuousBSDF materials are not part of "
-            "the wavefront route yet")
-    if scene.has_roughen:
-        raise NotImplementedError(
-            "the Roughen modifier is not part of the wavefront route yet")
-    if scene.mix_remaps:
-        raise NotImplementedError(
-            "Blend/Add material mixes are not part of the wavefront route yet")
-    if any(v[2] == VOL_INHOMOGENEOUS for v in scene.volume_entities):
-        raise NotImplementedError(
-            "inhomogeneous volumes are not part of the wavefront route yet")
 
 
 # importance sampling (optical/scenegraph/world.pyx:134-253)
@@ -511,9 +554,9 @@ def _hemisphere_cosine(u1, u2):
 
 def _surface_interaction(scene: CompiledScene, cfg: RayConfig,
                          state: RayState, rec: HitRecord, u):
-    """Every built-in material's surface response for the batch:
-    (new_origin, new_direction, throughput_mul[N,B], emission[N,B],
-    continues[N], counts_depth[N])."""
+    """Every material's surface response for the batch, the user BSDFs and
+    the modifiers included: (new_origin, new_direction, throughput_mul[N,B],
+    emission[N,B], continues[N], counts_depth[N])."""
     N = state.origin.shape[0]
     B = state.throughput.shape[1]
     dtype = state.origin.dtype
@@ -521,10 +564,24 @@ def _surface_interaction(scene: CompiledScene, cfg: RayConfig,
 
     mat_id = vmath.select_rows(scene.entity_material,
                                torch.clamp(rec.entity, min=0))
+    # mix modifiers (Blend/Add): reroll the material id before the gathers.
+    # The remaps are sorted ascending, so nested mixes resolve in one sweep;
+    # an Add lane carries its one-sample weight
+    lane_weight = torch.ones((N,), dtype=dtype, device=dev)
+    for mix_id, id_a, id_b, add_weight in scene.mix_remaps:
+        pick_b = u[:, 7] < scene.mat_params[mix_id, 0]
+        is_mix = mat_id == mix_id
+        mat_id = torch.where(
+            is_mix, torch.where(pick_b, id_b, id_a).to(mat_id.dtype), mat_id)
+        if add_weight != 1.0:
+            lane_weight = torch.where(is_mix, lane_weight * add_weight,
+                                      lane_weight)
     mat_types = vmath.select_rows(
         torch.as_tensor(scene.mat_types, dtype=torch.int32, device=dev), mat_id)
-    # the built-in dispatch reads spectral slots 0-1 only
-    spectra = vmath.select_rows(scene.mat_spectra[:, :2], mat_id)
+    # the built-in dispatch reads spectral slots 0-1 only; the others ride
+    # along for the user BSDFs
+    n_slots = scene.mat_spectra.shape[1] if scene.custom_materials else 2
+    spectra = vmath.select_rows(scene.mat_spectra[:, :n_slots], mat_id)
     params = vmath.select_rows(scene.mat_params, mat_id)
     scalars = vmath.select_rows(scene.mat_scalars, mat_id)
 
@@ -533,6 +590,29 @@ def _surface_interaction(scene: CompiledScene, cfg: RayConfig,
     cos_in = -vmath.dot(d, n)  # > 0 when hitting the front face
     # shading normal faces the incident ray (ContinuousBSDF normal flip)
     n_sh = torch.where(cos_in[:, None] >= 0.0, n, -n)
+
+    # Roughen: perturb the shading normal before the dispatch
+    # (roughen.pyx:46-120), a lerp toward a cosine-hemisphere sample. Of four
+    # tries the first that keeps the incident ray on the same side is taken
+    # (the reference retries up to 50 times); where none is, the normal stays
+    # unperturbed. cos_in stays geometric: the dielectric's entering and
+    # exiting logic needs the true normal
+    if scene.has_roughen:
+        roughen = params[:, ROUGHEN_SLOT]
+        t_r, b_r, n_r = vmath.make_frame(n_sh)
+        chosen = n_sh
+        found = torch.zeros(N, dtype=torch.bool, device=dev)
+        for a in range(4):
+            pert = vmath.from_frame(
+                _hemisphere_cosine(u[:, 8 + 2 * a], u[:, 9 + 2 * a]),
+                t_r, b_r, n_r)
+            n_pert = vmath.normalise(vmath.lerp(n_sh, pert, roughen[:, None]))
+            valid = ((vmath.dot(n_pert, n_sh) > 1e-4)
+                     & (vmath.dot(d, n_pert) < 0.0))
+            chosen = torch.where((valid & ~found)[:, None], n_pert, chosen)
+            found = found | valid
+        keep = found & (roughen > 0.0)
+        n_sh = torch.where(keep[:, None], chosen, n_sh)
     abs_cos_in = torch.abs(cos_in)
     t_f, b_f, n_f = vmath.make_frame(n_sh)
 
@@ -697,7 +777,73 @@ def _surface_interaction(scene: CompiledScene, cfg: RayConfig,
         new_direction = torch.where(m[:, None], out_dir, new_direction)
         new_origin = torch.where(m[:, None], origin_sel, new_origin)
         continues = continues | ok
+    if scene.custom_materials:
+        # user BSDFs (material.pyx:205-390), in the shading frame
+        lam = scene.wavelengths.to(dtype)
+        w_in = vmath.to_frame(-d, t_f, b_f, n_f)  # away from the surface
+        back_face = ~front  # the reference's exiting/back_face flag
+        for cid, mat_obj in scene.custom_materials:
+            m = mat_id == cid
+            # other materials' rows ride the masked lanes: a user singularity
+            # there (a division by a zero parameter) would turn the masked
+            # branch's cotangent into NaN through torch.where
+            spectra_s = torch.where(m[:, None, None], spectra, 1.0)
+            params_s = torch.where(m[:, None], params, 1.0)
+            if mat_obj.MAT_TYPE == MAT_DISCRETE_BSDF:
+                wo_local, weight, transmitted = mat_obj.evaluate_shading(
+                    w_in, u[:, 1:3], lam, spectra_s, params_s, back_face)
+                wo = vmath.from_frame(wo_local, t_f, b_f, n_f)
+                ok = m & (torch.amax(weight, dim=-1) > 0.0)
+                thr_mul = torch.where(m[:, None], weight, thr_mul)
+                new_direction = torch.where(m[:, None], wo, new_direction)
+                new_origin = torch.where(
+                    m[:, None],
+                    torch.where(transmitted[:, None], trans_origin,
+                                refl_origin),
+                    new_origin)
+                continues = continues | ok
+            else:  # ContinuousBSDF: one-sample MIS (material.pyx:327-352)
+                wo_bsdf_local = mat_obj.sample(w_in, u[:, 1], u[:, 2],
+                                               spectra_s, params_s, back_face)
+                if use_mis:
+                    pick_light = u[:, 0] < w_imp
+                    dir_light = important_direction_sample(scene, rec.point,
+                                                           u[:, 3:6])
+                    wo_local = torch.where(
+                        pick_light[:, None],
+                        vmath.to_frame(dir_light, t_f, b_f, n_f),
+                        wo_bsdf_local)
+                    wo = vmath.from_frame(wo_local, t_f, b_f, n_f)
+                    pdf_light = important_direction_pdf(scene, rec.point, wo)
+                    pdf_bsdf = mat_obj.pdf(w_in, wo_local, spectra_s,
+                                           params_s, back_face)
+                    pdf = w_imp * pdf_light + (1.0 - w_imp) * pdf_bsdf
+                else:
+                    wo_local = wo_bsdf_local
+                    wo = vmath.from_frame(wo_local, t_f, b_f, n_f)
+                    pdf = mat_obj.pdf(w_in, wo_local, spectra_s, params_s,
+                                      back_face)
+                cos_out = wo_local[:, 2]
+                f = mat_obj.bsdf(w_in, wo_local, lam, spectra_s, params_s,
+                                 back_face)
+                # a transmitted lane (cos_out < 0) relaunches on the far
+                # side (material.pyx:286-361); its weight takes |cos_out|
+                ok = m & (pdf > 1e-9) & (torch.abs(cos_out) > 1e-9)
+                w_c = torch.where(
+                    ok, torch.abs(cos_out) / torch.clamp(pdf, min=1e-12), 0.0)
+                thr_mul = torch.where(m[:, None], f * w_c[:, None], thr_mul)
+                new_direction = torch.where(m[:, None], wo, new_direction)
+                new_origin = torch.where(
+                    m[:, None],
+                    torch.where(cos_out[:, None] < 0.0, trans_origin,
+                                refl_origin),
+                    new_origin)
+                continues = continues | ok
     # absorbers fall through: continues stays False, thr_mul 0
+    if scene.mix_remaps:
+        # an Add's one-sample weight applies to the whole response
+        thr_mul = thr_mul * lane_weight[:, None]
+        emission = emission * lane_weight[:, None]
     return new_origin, new_direction, thr_mul, emission, continues, counts_depth
 
 
@@ -735,15 +881,17 @@ def _volume_interaction(scene: CompiledScene, state: RayState,
                         rec: HitRecord):
     """Volume responses along the traversed segment (optical/ray.pyx:
     422-455), containment tested at the segment midpoint: Beer-Lambert
-    attenuation (dielectric.pyx:313-328) and homogeneous emission. Returns
-    (throughput, emission)."""
+    attenuation (dielectric.pyx:313-328), homogeneous emission and the
+    inhomogeneous emitters' trapezoid march. Returns (throughput,
+    emission)."""
     if not scene.volume_entities:
         return state.throughput, torch.zeros_like(state.radiance)
     t_seg = torch.where(rec.hit, rec.t, 0.0)
     midpoint = state.origin + 0.5 * t_seg[:, None] * state.direction
     throughput = state.throughput
     emission = torch.zeros_like(state.radiance)
-    for e, mat_idx, kind, _obj, _leaf, _slot, _iv in scene.volume_entities:
+    for e, mat_idx, kind, mat_obj, _leaf, _slot, intervals in (
+            scene.volume_entities):
         m = _entity_inside(scene, e, midpoint) & rec.hit
         spec = scene.mat_spectra[mat_idx]
         if kind == VOL_BEER:
@@ -755,7 +903,52 @@ def _volume_interaction(scene: CompiledScene, state: RayState,
         elif kind == VOL_HOMOGENEOUS:
             emission = emission + torch.where(
                 m[:, None], spec[0][None, :] * t_seg[:, None], 0.0)
+        elif kind == VOL_INHOMOGENEOUS:
+            emission = emission + torch.where(
+                m[:, None],
+                _inhomogeneous_emission(scene, e, mat_obj, intervals, state,
+                                        t_seg),
+                0.0)
     return throughput, emission
+
+
+def _inhomogeneous_emission(scene: CompiledScene, e, mat_obj, intervals,
+                            state: RayState, t_seg):
+    """The emission closure of an inhomogeneous volume integrated along each
+    segment by the trapezoid rule in the entity's local frame
+    (emitter/inhomogeneous.pyx:108-177): ``intervals + 1`` equally spaced
+    samples, both ends included (the reference adjusts its step to absorb
+    the remainder the same way, :139); ``intervals`` is static, derived by
+    ``compile_scene`` from the reference's step rule at the chord's upper
+    bound. A ``VolumeTransform`` adds its frame. Returns f32[N, B]."""
+    inner = mat_obj  # unwrap delegating modifiers to the emitter
+    while not hasattr(inner, "integrator") and hasattr(inner, "material"):
+        inner = inner.material
+    w2l = scene.entity_w2l[e]
+    S = intervals + 1
+    ts = torch.arange(S, dtype=t_seg.dtype, device=t_seg.device) / intervals
+    pts = (state.origin[:, None, :]
+           + (ts[None, :] * t_seg[:, None])[..., None]
+           * state.direction[:, None, :])  # [N, S, 3]
+    p_loc = vmath.transform_point(w2l[None, None], pts)
+    d_loc = vmath.transform_vector(w2l[None], state.direction)
+    frame = getattr(mat_obj, "volume_frame_matrix", None)
+    if frame is not None:
+        fm = torch.as_tensor(frame(), dtype=p_loc.dtype, device=p_loc.device)
+        p_loc = vmath.transform_point(fm[None, None], p_loc)
+        d_loc = vmath.transform_vector(fm[None], d_loc)
+    # the integration measure is the local-frame length (it differs from
+    # t_seg under a scaling transform)
+    d_norm = torch.sqrt(torch.clamp(vmath.dot(d_loc, d_loc), min=1e-24))
+    local_len = t_seg * d_norm
+    d_unit = d_loc / d_norm[:, None]
+    lam = scene.wavelengths.to(t_seg.dtype)
+    dens = inner.emission_function(p_loc, d_unit[:, None, :], lam)  # [N,S,B]
+    w_trap = torch.ones(S, dtype=dens.dtype, device=dens.device)
+    w_trap[0] = 0.5
+    w_trap[-1] = 0.5
+    return (local_len / intervals)[:, None] * torch.sum(
+        dens * w_trap[None, :, None], dim=1)
 
 
 def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, u,
@@ -765,7 +958,6 @@ def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, u,
     bounce's [N, n_uniforms] draws. ``differentiable=False`` lets the
     intersection consume the BVH kernel's whole winner record. Returns the
     next RayState, its spectral state rounded to the state's dtype."""
-    _check_wavefront(scene)
     # Russian roulette (optical/ray.pyx:380-388)
     roulette_active = state.alive & (state.depth >= cfg.extinction_min_depth)
     killed = roulette_active & (u[:, 6] < cfg.extinction_prob)

@@ -1,12 +1,14 @@
 """Shared inputs of the source_tpu_torch parity tests (no tests in here):
 the test configuration, the JAX-side "zoo" scene, the carriers that hand a
-compiled scene across between the two packages as numpy arrays, and the
-compile of a JAX reference with LLVM's optimisation off."""
+compiled scene across between the two packages as numpy arrays, the
+compile of a JAX reference with LLVM's optimisation off, and the training
+step of both packages on the same streams."""
 
 import contextlib
 import os
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -73,8 +75,10 @@ def jax_zoo():
     return S.compile_scene(w, S.SpectralConfig(375.0, 740.0, B))
 
 
-def carry_scene(js, device="cpu"):
-    """A JAX CompiledScene as the port's, through ``scene_from_numpy``."""
+def carry_scene(js, device="cpu", materials=None):
+    """A JAX CompiledScene as the port's, through ``scene_from_numpy``;
+    ``materials`` hands the port's objects of the user BSDF and
+    inhomogeneous volume rows."""
     arrays = {k: np.asarray(getattr(js, k)) for k in ARRAY_FIELDS}
     if js.leaf_bvh is not None:
         arrays["leaf_bvh"] = {k: np.asarray(v) for k, v in js.leaf_bvh.items()}
@@ -84,7 +88,7 @@ def carry_scene(js, device="cpu"):
     static = {k: getattr(js, k) for k in STATIC_FIELDS}
     static["volume_entities"] = tuple(
         r[:3] + (None,) + r[4:] for r in js.volume_entities)
-    return scene_from_numpy(arrays, static, device=device)
+    return scene_from_numpy(arrays, static, device=device, materials=materials)
 
 
 def to_jax(ts):
@@ -124,3 +128,133 @@ def jax_compiled(fn, *args):
     returns a zero normal on some CSG lanes, ROADMAP.md queue 3)."""
     return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0})
+
+
+def uniform_streams(key, n_uniforms=10):
+    """The reference's bounce uniforms ``uniform(fold_in(key, 0x7A000 +
+    start), (n_steps, N, n_uniforms))`` and compaction rotations
+    ``randint(fold_in(key, 1_000_000 + done), (), 0, alive)`` as the port's
+    ``u_all`` and ``shifts``."""
+    def u_all(start, n_steps, n_lanes):
+        u = jax.random.uniform(jax.random.fold_in(key, 0x7A000 + start),
+                               (n_steps, n_lanes, n_uniforms), jnp.float32)
+        return torch.from_numpy(np.array(u))
+
+    def shifts(done, alive_count):
+        return int(jax.random.randint(jax.random.fold_in(key, 1_000_000 + done),
+                                      (), 0, max(alive_count, 1)))
+    return u_all, shifts
+
+
+def masked_grad_pair(ts, js, cfg, o, d, key, bins, **port_kw):
+    """The training step of both packages on the same scene, rays and
+    streams, against target 0 except on the lanes whose forward radiance
+    differs between them (rtol 1e-4, atol 1e-6): their target is the side's
+    own radiance, so they add nothing to either loss or gradient.
+
+    The reference is ``jax.value_and_grad`` of its ``render_batch(
+    differentiable=True)`` loss over the scene pytree, SOURCE_TPU_FUSED=0,
+    SOURCE_TPU_LEAF_BVH=0, compiled by ``jax_compiled`` with its
+    ``remat_block=0`` (at LLVM level 0 its checkpointed scan returns NaN,
+    ROADMAP.md queue 3). ``cfg`` is the RayConfig keywords; ``port_kw`` goes
+    to the port's ``render_loss_and_grads`` beside ``u_all``/``shifts``.
+    Returns dict(masked, ref=(loss, grads pytree), got=(loss, grads),
+    u_all, shifts)."""
+    import source_tpu_torch as T
+    from source_tpu.parallel.engine import render_batch as jax_render_batch
+    from source_tpu.tracer.wavefront import RayConfig as JaxRayConfig
+    from source_tpu_torch.tracer.wavefront import _n_uniforms
+
+    u_all, shifts = uniform_streams(key, _n_uniforms(ts))
+    jcfg = JaxRayConfig(**cfg, remat_block=0)
+    oj, dj = jnp.asarray(o), jnp.asarray(d)
+
+    def step(scene, target):
+        def loss_fn(scene, target):
+            fin = jax_render_batch(scene, jcfg, oj, dj, key,
+                                   differentiable=True)
+            return jnp.mean((fin.radiance - target) ** 2), fin.radiance
+        return jax.value_and_grad(loss_fn, has_aux=True, allow_int=True)(
+            scene, target)
+
+    zero = jnp.zeros((len(o), bins), jnp.float32)
+    with env(SOURCE_TPU_FUSED="0", SOURCE_TPU_LEAF_BVH="0"):
+        ref_step = jax_compiled(step, js, zero)
+    (_, rad_j), _ = ref_step(js, zero)
+    rad_j = np.asarray(rad_j)
+    rad_p = T.render_batch(ts, T.RayConfig(**cfg), o, d, u_all=u_all,
+                           shifts=shifts, differentiable=True, device="cpu"
+                           ).radiance.detach().numpy()
+    agree = np.isclose(rad_p, rad_j, rtol=1e-4, atol=1e-6).all(-1)
+    (loss_j, _), g_j = ref_step(
+        js, jnp.asarray(np.where(agree[:, None], 0.0, rad_j), jnp.float32))
+    got = T.render_loss_and_grads(
+        ts, T.RayConfig(**cfg), o, d,
+        np.where(agree[:, None], 0.0, rad_p).astype(np.float32),
+        u_all=u_all, shifts=shifts, device="cpu", **port_kw)
+    return dict(masked=int((~agree).sum()), ref=(float(loss_j), g_j), got=got,
+                u_all=u_all, shifts=shifts)
+
+
+def trace_step_parity(js, ts, cfg, o, d, u_all, bins=B, max_flip=0.005):
+    """``trace_step`` of both packages bounce by bounce, each bounce from the
+    reference's state, on the same uniforms ``u_all`` [n, N, n_uniforms]
+    (the reference compiled once by ``jax_compiled``, SOURCE_TPU_FUSED=0,
+    SOURCE_TPU_LEAF_BVH=0): continuous state within rtol 1e-5 / atol 1e-6
+    on the lanes whose alive and depth agree, at most ``max_flip`` of the
+    lanes otherwise in each bounce. ``cfg`` is the RayConfig keywords.
+    Returns (lanes that decided otherwise in some bounce, the reference's
+    last state)."""
+    import source_tpu_torch as T
+    from source_tpu.tracer.wavefront import (
+        RayConfig as JaxRayConfig, init_rays as jax_init_rays,
+        trace_step as jax_trace_step,
+    )
+    cfg_j = JaxRayConfig(**cfg)
+    cfg_t = T.RayConfig(**cfg)
+    st = jax_init_rays(jnp.asarray(o), jnp.asarray(d), bins)
+    with env(SOURCE_TPU_FUSED="0", SOURCE_TPU_LEAF_BVH="0"):
+        step = jax_compiled(
+            lambda st, u: jax_trace_step(js, cfg_j, st, None, u=u,
+                                         differentiable=False),
+            st, jnp.asarray(u_all[0]))
+    differ = np.zeros(len(o), bool)
+    for k in range(len(u_all)):
+        ref = step(st, jnp.asarray(u_all[k]))
+        got = T.trace_step(ts, cfg_t, T.RayState(**{
+            f: torch.from_numpy(np.array(getattr(st, f)))
+            for f in ("origin", "direction", "throughput", "radiance",
+                      "alive", "depth", "segments", "overflow")}),
+            torch.from_numpy(u_all[k]), differentiable=False)
+        assert int(got.segments) == int(ref.segments)
+        same = ((np.asarray(ref.alive) == got.alive.numpy())
+                & (np.asarray(ref.depth) == got.depth.numpy()))
+        for f in ("origin", "direction", "throughput", "radiance"):
+            a, b = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
+            assert np.isfinite(b).all(), f
+            same &= np.isclose(b, a, rtol=1e-5, atol=1e-6).all(-1)
+        differ |= ~same
+        assert (~same).mean() <= max_flip, k
+        st = ref
+    return differ, st
+
+
+def euler_ratio(scene, loss, grads):
+    """sum(value * gradient) over every emission row of the material table
+    (surface emitters and lights: slot 0; the checkerboard: both slots;
+    homogeneous volume emitters: slot 0) over 2 loss. Radiance is
+    homogeneous of degree 1 in these rows, so against a zero target the
+    ratio is 1."""
+    from source_tpu_torch.optical.material.base import (
+        MAT_CHECKERBOARD, MAT_EMITTER, MAT_EMITTER_ANISO, MAT_LIGHT,
+        VOL_HOMOGENEOUS,
+    )
+    rows = [(m, 0) for m, t in enumerate(scene.mat_types)
+            if t in (MAT_EMITTER, MAT_EMITTER_ANISO, MAT_LIGHT, MAT_CHECKERBOARD)]
+    rows += [(m, 1) for m, t in enumerate(scene.mat_types)
+             if t == MAT_CHECKERBOARD]
+    rows += [(r[1], 0) for r in scene.volume_entities if r[2] == VOL_HOMOGENEOUS]
+    assert rows
+    lhs = sum(float((scene.mat_spectra[m, k] * grads["mat_spectra"][m, k]).sum())
+              for m, k in set(rows))
+    return lhs / (2.0 * float(loss))

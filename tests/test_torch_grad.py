@@ -53,26 +53,17 @@ from source_tpu.tracer.wavefront import RayConfig as JaxRayConfig
 
 import source_tpu_torch as T
 from source_tpu_torch import scenes
-from source_tpu_torch.optical.material.base import (
-    MAT_CHECKERBOARD, MAT_EMITTER, MAT_EMITTER_ANISO, MAT_LIGHT, VOL_HOMOGENEOUS,
-)
 from source_tpu_torch.tracer import fused
 
-from test_torch_common import B, CFG, carry_scene, jax_zoo
+from test_torch_common import (
+    B, CFG, carry_scene, euler_ratio, jax_zoo, uniform_streams,
+)
 
 N = 256
 FIELDS = ("leaf_w2l", "leaf_params", "mat_params", "mat_spectra", "mat_scalars",
           "imp_centre", "imp_radius", "imp_weight", "imp_cdf", "entity_w2l")
 SPANS = ("perbounce", "multi")
 KEY = 13
-
-
-def _uniforms(key):
-    def u_all(start, n_steps, n_lanes):
-        u = jax.random.uniform(jax.random.fold_in(key, 0x7A000 + start),
-                               (n_steps, n_lanes, 10), jnp.float32)
-        return torch.from_numpy(np.array(u))
-    return u_all
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +96,8 @@ def steps(pairs):
                                      for f in FIELDS})
             ts = carry_scene(js)
             got = {span: T.render_loss_and_grads(
-                ts, T.RayConfig(**CFG), o, d, target, u_all=_uniforms(key),
+                ts, T.RayConfig(**CFG), o, d, target,
+                u_all=uniform_streams(key)[0],
                 span=span, device="cpu") for span in SPANS}
             out[name] = (ts, ref, got)
     finally:
@@ -156,21 +148,6 @@ def test_both_span_modes_are_one_function(steps, name):
     assert float(got["multi"][0]) == float(got["perbounce"][0])
 
 
-def _euler(scene, loss, grads):
-    """sum(value * gradient) over every emission row of the material table
-    (surface emitters and lights: slot 0; the checkerboard: both slots;
-    homogeneous volume emitters: slot 0) over 2 loss."""
-    rows = [(m, 0) for m, t in enumerate(scene.mat_types)
-            if t in (MAT_EMITTER, MAT_EMITTER_ANISO, MAT_LIGHT, MAT_CHECKERBOARD)]
-    rows += [(m, 1) for m, t in enumerate(scene.mat_types)
-             if t == MAT_CHECKERBOARD]
-    rows += [(r[1], 0) for r in scene.volume_entities if r[2] == VOL_HOMOGENEOUS]
-    assert rows
-    lhs = sum(float((scene.mat_spectra[m, k] * grads["mat_spectra"][m, k]).sum())
-              for m, k in set(rows))
-    return lhs / (2.0 * float(loss))
-
-
 @pytest.mark.parametrize("span", SPANS)
 @pytest.mark.parametrize("name", ["cornell", "zoo"])
 def test_euler_identity_on_emission_rows(steps, name, span):
@@ -180,7 +157,7 @@ def test_euler_identity_on_emission_rows(steps, name, span):
     kind of emitter (uniform, anisotropic, checkerboard, volume) behind
     mirrors, conductors and a null surface."""
     ts, _, got = steps[name]
-    assert abs(_euler(ts, *got[span]) - 1.0) <= 1e-4
+    assert abs(euler_ratio(ts, *got[span]) - 1.0) <= 1e-4
 
 
 def test_euler_identity_through_compaction(steps):
@@ -199,7 +176,7 @@ def test_euler_identity_through_compaction(steps):
         ts, cfg, o, d, target, torch.Generator().manual_seed(3), device="cpu")
     np.testing.assert_allclose(
         float(loss), float(torch.mean(final.radiance ** 2)), rtol=1e-6)
-    assert abs(_euler(ts, loss, grads) - 1.0) <= 1e-4
+    assert abs(euler_ratio(ts, loss, grads) - 1.0) <= 1e-4
 
 
 def test_differentiable_route_matches_forward_route(steps):
@@ -209,7 +186,7 @@ def test_differentiable_route_matches_forward_route(steps):
     caller's scene without ``requires_grad``."""
     ts = steps["cornell"][0]
     o, d = scenes.scatter_rays(N, seed=2)
-    u_all = _uniforms(jax.random.PRNGKey(KEY))
+    u_all = uniform_streams(jax.random.PRNGKey(KEY))[0]
     cfg = T.RayConfig(**CFG)
     fwd = T.render_batch(ts, cfg, o, d, u_all=u_all, device="cpu")
     for span in SPANS:
@@ -393,7 +370,7 @@ def test_tables_are_cached_and_follow_in_place_edits(steps):
     assert ts.fused_cache == {} and ts.fused_cache is not ts0.fused_cache
     cfg = T.RayConfig(**CFG)
     o, d = scenes.scatter_rays(N, seed=2)
-    u_all = _uniforms(jax.random.PRNGKey(KEY))
+    u_all = uniform_streams(jax.random.PRNGKey(KEY))[0]
     first = T.render_batch(ts, cfg, o, d, u_all=u_all, device="cpu")
     spec, entry = fused.scene_tables(ts, cfg)
     tab = entry["tab"]

@@ -51,7 +51,6 @@ from source_tpu.tracer.intersect import intersect_scene as jax_intersect
 from source_tpu.tracer.wavefront import (
     RayConfig as JaxRayConfig,
     init_rays as jax_init_rays, trace_rays as jax_trace_rays,
-    trace_step as jax_trace_step,
 )
 
 import source_tpu_torch as T
@@ -59,9 +58,8 @@ from source_tpu_torch import scenes
 from source_tpu_torch.primitive import analytic as TA
 from source_tpu_torch.tracer import analytic_bvh as TAB
 from source_tpu_torch.tracer.intersect import intersect_scene
-from source_tpu_torch.tracer.wavefront import trace_step
 
-from test_torch_common import B, carry_scene
+from test_torch_common import B, carry_scene, trace_step_parity
 from test_torch_common import env as _env, jax_compiled as _jax_compiled, to_jax
 
 SPECTRAL = (375.0, 740.0, B)
@@ -379,42 +377,14 @@ def _jax_state(o, d):
     return jax_init_rays(jnp.asarray(o), jnp.asarray(d), B)
 
 
-def _port_state(js_state):
-    f = {k: torch.from_numpy(np.array(getattr(js_state, k)))
-         for k in ("origin", "direction", "throughput", "radiance", "alive",
-                   "depth", "segments", "overflow")}
-    return T.RayState(**f)
-
-
 def test_trace_step_matches_jax(csg_pair):
     """Four bounces, each from the JAX state, with the same uniforms."""
     _, ts, js = csg_pair
     o, d = _csg_rays(32)
     o, d = o[::2], d[::2]
-    cfg_j, cfg_t = JaxRayConfig(**CSG_CFG), T.RayConfig(**CSG_CFG)
     u_all = np.random.RandomState(3).random_sample((4, len(o), 10)).astype(
         np.float32)
-    with _env(SOURCE_TPU_FUSED="0", SOURCE_TPU_LEAF_BVH="0"):
-        st = _jax_state(o, d)
-        step = _jax_compiled(
-            lambda st, u: jax_trace_step(js, cfg_j, st, None, u=u,
-                                         differentiable=False),
-            st, jnp.asarray(u_all[0]))
-        differ = np.zeros(len(o), bool)
-        for k in range(4):
-            ref = step(st, jnp.asarray(u_all[k]))
-            got = trace_step(ts, cfg_t, _port_state(st),
-                             torch.from_numpy(u_all[k]), differentiable=False)
-            assert int(got.segments) == int(ref.segments)
-            same = ((np.asarray(ref.alive) == got.alive.numpy())
-                    & (np.asarray(ref.depth) == got.depth.numpy()))
-            for f in ("origin", "direction", "throughput", "radiance"):
-                a, b = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
-                assert np.isfinite(b).all(), f
-                same &= np.isclose(b, a, rtol=1e-5, atol=1e-6).all(-1)
-            differ |= ~same
-            assert (~same).mean() <= MAX_FLIP, k
-            st = ref
+    differ, st = trace_step_parity(js, ts, CSG_CFG, o, d, u_all)
     print(f"trace_step: {int(differ.sum())} of {len(o)} lanes decide otherwise "
           "in some bounce")
     assert float(np.asarray(st.radiance).sum()) > 0.0
