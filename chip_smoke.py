@@ -30,9 +30,14 @@ wavefront route on the CSG demo and the mesh demo at those sizes (phase
 ``wstep``: checkpoint blocks of 1 and of 0 bounces, exact kernel launches,
 the card against the CPU at 4 096 rays), and ``modifier_world`` (Blend, Add,
 Roughen, user BSDFs, an inhomogeneous volume) at the CSG demo's camera,
-forward and differentiable (phase ``modifiers``). Every phase prints one
-JSON line; any failure exits non-zero. Without a CUDA device the script
-exits 2 and prints no result.
+forward and differentiable (phase ``modifiers``); and the observer layer
+(phase ``observers``): the furnace through observers, tests/test_golden.py's
+Cornell blocks, the card against the CPU on a small observation with
+injected uniforms, and ``PinholeCamera.observe()`` on the five scenes of
+benchmarks/suite.py at its sizes, timed by its protocol (one warm pass,
+three timed passes), launches held exactly to each scene's route. Every
+phase prints one JSON line; any failure exits non-zero. Without a CUDA
+device the script exits 2 and prints no result.
 ``--phases krng,fusedprof`` runs a subset while developing (the last line is
 then not a pass).
 """
@@ -104,8 +109,13 @@ MESH_TRI_OPS = 110
 MESH_RTOL, MESH_ATOL = 1e-6, 1e-7  # t, u, v on lanes with the same triangle
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def fail(msg):
@@ -409,6 +419,52 @@ def k3_timeline(fused, spec, tab, desc, st0, u):
                 tail_steps_run=sum(1 for x in t[2 + n_steps:] if x > 0))
 
 
+def span_against_plain(name, fused, spec, tab, desc, st0, u):
+    """Hold one fused_span_fwd call (packed state ``st0``, uniforms ``u``
+    [n_steps, 10, N]) against span_fwd_plain on the same inputs: flips per
+    bounce, the state of the lanes whose history agrees, and the mean
+    radiance; returns its measurements, times and bound."""
+    N, bins, n_steps = st0["o"].shape[1], spec.bins, u.shape[0]
+    flops = fused.bounce_flops(spec)
+    state_bytes = 4 * N * (8 + 2 * bins)
+    table_bytes = 4 * (tab.numel() + desc.numel())
+    k_st, k_bits = fused.fused_span_fwd(spec, tab, desc, st0, u)
+    torch.cuda.synchronize()
+    p_st, p_bits = fused.span_fwd_plain(spec, tab, st0, u)
+    same = canon(k_bits) == p_bits                  # [n_steps, N]
+    agree_upto = torch.cumprod(same.int(), 0).bool()  # history agrees
+    before = torch.cat([torch.ones_like(same[:1]), agree_upto[:-1]])
+    new_flips = (before & ~same).float().mean(1)    # first divergence
+    flip = float(new_flips.max())
+    agree = agree_upto[-1]
+    dev = compare_state(k_st, p_st, agree, torus_lanes(spec, p_bits),
+                        TORUS_SPAN)
+    diff, se, mean_ok = mean_within(k_st["rad"], p_st["rad"])
+    if not dev.pop("ok"):
+        fail(f"{name} fused_span_fwd[{n_steps}]: deviation {dev}")
+    if flip > MAX_FLIP:
+        fail(f"{name} fused_span_fwd[{n_steps}]: {flip:.5f} of lanes chose "
+             "differently in one bounce")
+    if not mean_ok:
+        fail(f"{name} fused_span_fwd[{n_steps}]: mean radiance differs "
+             f"{diff} (se {se})")
+    segs = int((k_bits & 1).sum())
+    entered = N + int(((k_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
+    ms = time_ms(lambda: fused.fused_span_fwd(spec, tab, desc, st0, u), 5)
+    plain_ms = time_ms(lambda: fused.span_fwd_plain(spec, tab, st0, u), 1)
+    nbytes = (table_bytes + 2 * state_bytes + 4 * n_steps * N
+              + 4 * fused.N_UNIFORMS * entered)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = segs * flops / F32_FLOPS * 1e3
+    return dict(
+        scene=name, n=N, bins=bins, n_steps=n_steps, segments=segs,
+        flip=flip, diverged=1.0 - float(agree.float().mean()), **dev,
+        mean_diff=diff, mean_se=se, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms=t_bytes, operations_ms=t_ops)
+
+
 def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
                 general=False):
     """Hold fused_bounce_fwd and fused_span_fwd against their plain versions
@@ -484,44 +540,9 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
         res["fused_bounce_fwd"]["torus_lanes"] = torus
 
     # --- fused_span_fwd over each span length
-    spans = []
-    for n_steps in span_steps:
-        u = u_all[:n_steps].contiguous()
-        k_st, k_bits = fused.fused_span_fwd(spec, tab, desc, st0, u)
-        torch.cuda.synchronize()
-        p_st, p_bits = fused.span_fwd_plain(spec, tab, st0, u)
-        same = canon(k_bits) == p_bits                  # [n_steps, N]
-        agree_upto = torch.cumprod(same.int(), 0).bool()  # history agrees
-        before = torch.cat([torch.ones_like(same[:1]), agree_upto[:-1]])
-        new_flips = (before & ~same).float().mean(1)    # first divergence
-        flip = float(new_flips.max())
-        agree = agree_upto[-1]
-        dev = compare_state(k_st, p_st, agree, torus_lanes(spec, p_bits),
-                            TORUS_SPAN)
-        diff, se, mean_ok = mean_within(k_st["rad"], p_st["rad"])
-        if not dev.pop("ok"):
-            fail(f"{name} fused_span_fwd[{n_steps}]: deviation {dev}")
-        if flip > MAX_FLIP:
-            fail(f"{name} fused_span_fwd[{n_steps}]: {flip:.5f} of lanes chose "
-                 "differently in one bounce")
-        if not mean_ok:
-            fail(f"{name} fused_span_fwd[{n_steps}]: mean radiance differs "
-                 f"{diff} (se {se})")
-        segs = int((k_bits & 1).sum())
-        entered = N + int(((k_bits[:-1] >> fused.B_ALIVENEXT) & 1).sum())
-        ms = time_ms(lambda: fused.fused_span_fwd(spec, tab, desc, st0, u), 5)
-        plain_ms = time_ms(lambda: fused.span_fwd_plain(spec, tab, st0, u), 1)
-        nbytes = (table_bytes + 2 * state_bytes + 4 * n_steps * N
-                  + 4 * fused.N_UNIFORMS * entered)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = segs * flops / F32_FLOPS * 1e3
-        spans.append(dict(
-            scene=name, n=N, bins=bins, n_steps=n_steps, segments=segs,
-            flip=flip, diverged=1.0 - float(agree.float().mean()), **dev,
-            mean_diff=diff, mean_se=se, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes_ms=t_bytes, operations_ms=t_ops))
+    spans = [span_against_plain(name, fused, spec, tab, desc, st0,
+                                u_all[:n_steps].contiguous())
+             for n_steps in span_steps]
     res["fused_span_fwd"] = spans
 
     # --- the schedule over the whole chain of n_max bounces: the gates (K3
@@ -591,11 +612,13 @@ def kernel_case(name, world, bins, cfg, o, d, span_steps, seed, T, fused,
     return res
 
 
-def phase_env(fused, bvh):
+def phase_env(fused, bvh, extra_fwd_bins=()):
     t0 = time.time()
     from source_tpu_torch.tracer import mesh_bvh
     jobs = [(b, which) for which in ("fwd", "bwd") for b in (FLAGSHIP["bins"], 5)]
     jobs += [(None, "bvh"), (None, "mesh")]
+    # the bin counts of other phases' fused scenes (the MIS scene's 12)
+    jobs += [(b, "fwd") for b in extra_fwd_bins]
 
     def build(job):
         if job[1] == "bvh":
@@ -2629,6 +2652,10 @@ REMAT_GRAD_TOL = 1e-5    # gradient fields, of each field's largest entry
 CPU_LOSS_RTOL = 1e-4     # loss over the agreeing lanes, card against CPU
 CPU_GRAD_TOL = 1e-3      # gradient fields, of each field's largest entry
 MOD_RAYS = 512           # modifier_world at the CSG demo's camera, 512x512
+# bounces of the differentiable steps of the CSG demo and modifier_world:
+# the demo's 32 cut to 16, to keep the whole script inside half its time
+# limit (the gates count launches from it)
+WSTEP_ITERS = 16
 
 
 def emission_rows(scene):
@@ -2922,6 +2949,7 @@ def phase_wstep(T, fused, scenes):
     mesh demo at full width."""
     cases = {}
     scene, cfg, o, d = csg_setup(T, scenes)
+    cfg = dataclasses.replace(cfg, max_iters=WSTEP_ITERS)
     cases["csg"] = wstep_case("wstep/csg", T, fused, scene, cfg, o, d,
                               CSG["bins"],
                               ("leaf_w2l", "leaf_params", "mat_spectra"), ())
@@ -2970,7 +2998,7 @@ def phase_modifiers(T, fused, scenes):
     bins = CSG["bins"]
     scene = T.compile_scene(scenes.modifier_world(),
                             T.SpectralConfig(375.0, 740.0, bins))
-    cfg = csg_setup_cfg(T)
+    cfg = dataclasses.replace(csg_setup_cfg(T), max_iters=WSTEP_ITERS)
     o, d = scenes.camera_rays(MOD_RAYS, MOD_RAYS, CSG["fov"], CSG["position"])
     o, d = torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
     n = o.shape[0]
@@ -3037,8 +3065,423 @@ def phase_modifiers(T, fused, scenes):
     return dict(forward=launches, step=case["launches"][1])
 
 
+# --- observers and pipelines (phase observers) --------------------------------
+
+# the suite's five scenes at the settings of benchmarks/suite.py (the line
+# of each bench_* function), and the route each must take: fused for the
+# scenes fused.scene_tables accepts, wavefront for CSG and meshes
+SUITE = {
+    "cornell": dict(line=63, route="fused", pixels=(256, 256), fov=45, spp=64,
+                    bins=15, max_depth=16, iters=24, schedule=((3, 4), (3, 4))),
+    "prism": dict(line=80, route="wavefront", pixels=(256, 144), fov=45,
+                  spp=32, bins=16,
+                  spectral_rays=4, importance=True, path_weight=0.75,
+                  max_depth=32, iters=40, schedule="auto"),
+    "csg": dict(line=103, route="wavefront", pixels=(256, 256), fov=75,
+                spp=64, bins=15, max_depth=24, iters=32,
+                schedule=((4, 4), (4, 4))),
+    "mis": dict(line=120, route="fused", pixels=(256, 192), fov=45, spp=64,
+                bins=12,
+                importance=True, path_weight=0.3, max_depth=12, iters=16,
+                schedule=((3, 4), (3, 4))),
+    "mesh": dict(line=140, route="wavefront", pixels=(192, 192), fov=45,
+                 spp=32, bins=12,
+                 max_depth=12, iters=16, schedule=((2, 8), (3, 4))),
+}
+OBS_REPEATS = 3         # timed passes a scene (the suite takes 9)
+OBS_STALL_BUDGET = 6    # passes below half the best rate re-run, at most
+OBS_FRAME_RTOL, OBS_FRAME_ATOL = 1e-4, 1e-6  # tests/test_torch_observers.py
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "data", "cornell_golden_blocks.npy")
+
+
+def suite_world(T, scenes, name):
+    """The scene's world and camera transform (benchmarks/suite.py)."""
+    tr, rot = T.translate, T.rotate
+    if name == "cornell":
+        return scenes.cornell_box(glass=False), tr(0, 0, -3.3)
+    if name == "prism":
+        return scenes.prism_world(), (tr(0, 0.075, -0.05) * rot(180, -45, 0)
+                                      * tr(0, 0, -0.75))
+    if name == "csg":
+        return scenes.csg_world(), tr(0, 0, -4)
+    if name == "mis":
+        return scenes.mis_world(), tr(0, 1.2, -3.5) * rot(0, -5, 0)
+    return scenes.mesh_world(small=True), tr(0, 1.0, -4.5) * rot(0, -8, 0)
+
+
+def suite_camera(T, O, scenes, name, device="cuda"):
+    s = SUITE[name]
+    world, transform = suite_world(T, scenes, name)
+    rgb = O.RGBPipeline2D()
+    cam = O.PinholeCamera(s["pixels"], fov=s["fov"], parent=world,
+                          transform=transform, pipelines=[rgb], device=device)
+    cam.pixel_samples = s["spp"]
+    cam.spectral_bins = s["bins"]
+    cam.spectral_rays = s.get("spectral_rays", 1)
+    if "importance" in s:
+        cam.ray_importance_sampling = s["importance"]
+        cam.ray_important_path_weight = s["path_weight"]
+    cam.ray_max_depth = s["max_depth"]
+    cam.max_wavefront_iters = s["iters"]
+    cam.compact_schedule = s["schedule"]
+    return cam, rgb
+
+
+def observe_timed(cam):
+    """benchmarks/suite.py ``_observe_timed``: one warm pass, then timed
+    passes with ``accumulate=False`` (OBS_REPEATS of them, the suite's 9
+    would push the script past its time); a pass below half the best rate
+    so far counts as a stall and is run again (OBS_STALL_BUDGET at most).
+    The kept rates are 25 %-trimmed at both ends; returns the median and
+    spread of the trimmed set, the stalls, and every pass's figures."""
+    cam.quiet = True
+    cam.observe(seed=1)
+    rates, passes, stalls, seed = [], [], 0, 2
+    while len(rates) < OBS_REPEATS and stalls <= OBS_STALL_BUDGET:
+        for p in cam.pipelines:
+            if hasattr(p, "accumulate"):
+                p.accumulate = False
+        cam.observe(seed=seed)
+        seed += 1
+        r = cam.rays_per_second
+        passes.append(dict(rays_per_s=r, render_time_s=cam.render_time,
+                           segments=cam._stats_rays,
+                           overflow=cam.compaction_overflow))
+        if rates and r < 0.5 * max(rates):
+            stalls += 1
+            continue
+        rates.append(r)
+    rates.sort()
+    k = len(rates) // 4
+    trimmed = rates[k: len(rates) - k] if len(rates) > 2 * k else rates
+    median = trimmed[len(trimmed) // 2]
+    return median, (trimmed[-1] - trimmed[0]) / median, stalls, passes
+
+
+class CallCount:
+    """Counts the calls of module functions (the functions that trace one
+    bounce and one fused span), to derive the launches a pass must make."""
+
+    def __init__(self, *targets):
+        self.n = {}
+        self.undo = []
+        for module, name in targets:
+            real = getattr(module, name)
+            self.n[name] = 0
+
+            def counted(*a, _real=real, _name=name, **kw):
+                self.n[_name] += 1
+                return _real(*a, **kw)
+            setattr(module, name, counted)
+            self.undo.append((module, name, real))
+
+    def restore(self):
+        for module, name, real in self.undo:
+            setattr(module, name, real)
+
+
+def route_launches(scene, steps, spans):
+    """The launches of the kernels of a scene's route, given its traced
+    bounces (``trace_step`` calls: the wavefront route and the "auto"
+    schedule's profile) and its fused spans (``fused_forward_span`` calls):
+    one fused_span_fwd a span; per bounce one analytic_bvh_winner when the
+    scene has the leaf BVH, one mesh_bvh_winner per mesh and per closed mesh
+    a volume probes; nothing else."""
+    probes = sum(1 for v in scene.volume_entities
+                 if v[5] >= 0 and scene.meshes[v[5]].closed)
+    return dict(NO_LAUNCHES, fused_span_fwd=spans,
+                analytic_bvh_winner=steps if scene.leaf_bvh is not None else 0,
+                mesh_bvh_winner=steps * (len(scene.meshes) + probes))
+
+
+def route_calls(cam, s):
+    """The calls of a pass on the scene's own route, from the camera's
+    settings alone: a trace per tile, sample chunk and spectral slice; on
+    the fused route exactly one fused span per stage of the explicit
+    schedule (and one for the bounces left after it) and no traced bounce;
+    on the wavefront route no fused span and between one and ``iters``
+    traced bounces a trace (early exit), plus the "auto" schedule's profile
+    of ``iters`` bounces. Returns (traces, fused spans, least and most
+    traced bounces)."""
+    n_pixels = int(np.prod(s["pixels"]))
+    tile = int(cam.tile_size)
+    spp = s["spp"]
+    spt = max(1, min(int(cam.samples_per_task or spp), spp))
+    traces = (-(-n_pixels // tile)) * (-(-spp // spt)) * s.get("spectral_rays", 1)
+    if s["route"] == "wavefront":
+        profile = s["iters"] if s["schedule"] == "auto" else 0
+        return traces, 0, traces, traces * s["iters"] + profile
+    if s["schedule"] == "auto":
+        fail("observers: a fused suite scene needs an explicit schedule")
+    done, spans = 0, 0
+    for steps, _divisor in s["schedule"]:
+        steps = min(steps, s["iters"] - done)
+        if steps <= 0:
+            break
+        done, spans = done + steps, spans + 1
+    spans += done < s["iters"]
+    return traces, traces * spans, 0, 0
+
+
+def span_inputs_against_plain(T, O, fused, scenes, name):
+    """fused_span_fwd at the main path's own inputs: one observe() of a
+    suite scene records the spans of its first trace (the scene's bins, the
+    camera's ray config and rays, the widths its compaction leaves) as the
+    observer launched them; each is then held against span_fwd_plain by the
+    gates of phase kernels (the recorded launches are not counted)."""
+    s = SUITE[name]
+    cam, _rgb = suite_camera(T, O, scenes, name)
+    cam.quiet = True
+    traces, spans = route_calls(cam, s)[:2]
+    n_first = spans // traces
+    real, calls = fused.fused_forward_span, []
+
+    def record(tab, desc, spec, state, u_all=None, **kw):
+        # the packed state and uniforms the span's fused_span_fwd receives
+        if u_all is not None and len(calls) < n_first:
+            calls.append((spec, tab, desc, fused.pack_state(state),
+                          fused.pack_u(u_all.to(torch.float32))))
+        return real(tab, desc, spec, state, u_all, **kw)
+
+    fused.fused_forward_span = record
+    try:
+        cam.observe(seed=7)
+    finally:
+        fused.fused_forward_span = real
+    if len(calls) != n_first:
+        fail(f"observers: {name}: recorded {len(calls)} spans of the first "
+             f"trace, want {n_first}")
+    return [span_against_plain(f"{name}_trace0_span{i}", fused, spec, tab,
+                               desc, st, u)
+            for i, (spec, tab, desc, st, u) in enumerate(calls)]
+
+
+def observe_breakdown(T, fused, cam):
+    """One instrumented pass. Its launches, counted from 0, beside the
+    launches its traced bounces and fused spans require of its route; and
+    host milliseconds (synchronised around each stage) in the schedule's
+    profile, the camera rays, ``trace_rays``, the pipelines' projections
+    and the sample sums; the rest of ``render_time`` is the tile and slice
+    loop, the pull and the fold."""
+    from source_tpu_torch.optical.observer import base as B
+    from source_tpu_torch.optical.observer import pipelines as P
+    from source_tpu_torch.tracer import wavefront as W
+    scene = T.compile_scene(cam.root, T.SpectralConfig(
+        cam.min_wavelength, cam.max_wavelength, cam.spectral_bins))
+    clock = StageClock()
+    for module, name, stage in (
+            (B.ObserverBase, "_resolve_compact_schedule", "schedule"),
+            (B.ObserverBase, "_camera_rays", "camera_rays"),
+            (B, "trace_rays", "trace_rays"),
+            (P.RGBPipeline2D, "project", "project"),
+            (B, "_reduce_samples", "reduce")):
+        clock.wrap(module, name, stage)
+    calls = CallCount((W, "trace_step"), (fused, "fused_forward_span"))
+    try:
+        torch.cuda.synchronize()
+        reset_counts(fused)
+        cam.observe(seed=99)
+        torch.cuda.synchronize()
+        launches = read_counts(fused)
+    finally:
+        calls.restore()
+        clock.restore()
+    want = route_launches(scene, calls.n["trace_step"],
+                          calls.n["fused_forward_span"])
+    stages = dict(clock.ms)
+    # the schedule's camera rays are inside "schedule"
+    stages["camera_rays"] = (stages.get("camera_rays", 0.0)
+                             - clock.within.get(("schedule", "camera_rays"), 0.0))
+    render_ms = cam.render_time * 1e3
+    stages["loop_pull_fold"] = render_ms - sum(stages.values())
+    return launches, want, dict(calls.n), dict(render_ms=render_ms,
+                                               stages_ms=stages)
+
+
+def observer_furnace(T, O):
+    """Observers inside a unity emitter read exactly 1.0 in every bin: a
+    2D camera of unit-weight rays with a spectral radiance pipeline, and a
+    0D sight line (one task in a tile of 8)."""
+    out = {}
+    for name in ("orthographic", "sightline"):
+        world = T.World()
+        from source_tpu_torch.optical.material import UnitySurfaceEmitter
+        from source_tpu_torch.primitive import Sphere
+        Sphere(10.0, parent=world, material=UnitySurfaceEmitter())
+        if name == "orthographic":
+            pipe = O.SpectralRadiancePipeline2D()
+            obs = O.OrthographicCamera((64, 64), width=1.0, parent=world,
+                                       pipelines=[pipe])
+            obs.pixel_samples = 16
+        else:
+            pipe = O.SpectralRadiancePipeline0D()
+            obs = O.SightLine(parent=world, pipelines=[pipe])
+            obs.pixel_samples = 64
+        obs.spectral_bins = 8
+        obs.quiet = True
+        obs.observe(seed=3)
+        mean = np.asarray(pipe.frame.mean)
+        if not bool(np.all(mean == 1.0)):
+            fail(f"observers: furnace through {name} reads "
+                 f"{float(mean.min())}..{float(mean.max())}, not exactly 1.0")
+        out[name] = dict(bins=8, samples=int(np.asarray(pipe.frame.samples).min()),
+                         max_variance=float(np.asarray(pipe.frame.variance).max()))
+    return out
+
+
+def golden_gate(T, O, scenes):
+    """tests/test_golden.py's three assertions on the port's render: the
+    glass Cornell box, 64x64 pixels, 64 spp, seed 54321, against the
+    reference's golden XYZ block means."""
+    rgb = O.RGBPipeline2D(accumulate=True, name="golden")
+    cam = O.PinholeCamera((64, 64), parent=scenes.cornell_box(glass=True),
+                          pipelines=[rgb])
+    cam.transform = T.translate(0, 0, -3.3)
+    cam.pixel_samples = 64
+    cam.spectral_bins = 15
+    cam.ray_max_depth = 24
+    cam.max_wavefront_iters = 32
+    cam.ray_extinction_prob = 0.05
+    cam.quiet = True
+    cam.observe(seed=54321)
+    golden = np.load(GOLDEN)
+    blocks = rgb.xyz_frame.mean.reshape(8, 8, 8, 8, 3).mean(axis=(1, 3))
+    lum_dev = abs(blocks[..., 1].mean() - golden[..., 1].mean()) / golden[..., 1].mean()
+    rel = np.abs(blocks[..., 1] - golden[..., 1]) / np.maximum(golden[..., 1], 0.05)
+    red, green = blocks[0, 4], blocks[7, 4]
+    red_ratio = red[0] / max(red[1], 1e-6)
+    green_ratio = green[0] / max(green[1], 1e-6)
+    out = dict(mean_luminance_rel_dev=float(lum_dev),
+               block_rel_dev_p90=float(np.percentile(rel, 90)),
+               red_block_x_over_y=float(red_ratio),
+               green_block_x_over_y=float(green_ratio),
+               schedule=cam._auto_schedule_cache[1])
+    if not (lum_dev < 0.05 and out["block_rel_dev_p90"] < 0.25
+            and red_ratio > green_ratio):
+        fail(f"observers: the golden Cornell blocks do not hold: {out}")
+    return out
+
+
+def injected_streams(n_uniforms):
+    """Streams that depend only on the site, made on the CPU: the same
+    uniforms for a card run and a CPU run of one observation."""
+    import zlib
+
+    def gen(*key):
+        return torch.Generator().manual_seed(zlib.crc32(repr(key).encode()))
+
+    def camera_u(site, shape):
+        return torch.rand(shape, generator=gen(site))
+
+    def u_all(site, start, n_steps, n_lanes):
+        return torch.rand((n_steps, n_lanes, n_uniforms),
+                          generator=gen(site, start))
+
+    def shifts(site, done, alive):
+        return int(torch.randint(0, max(alive, 1), (), generator=gen(site, done)))
+
+    return dict(camera_u=camera_u, u_all=u_all, shifts=shifts)
+
+
+def card_against_cpu_observe(T, O, scenes, fused):
+    """A small Cornell observation (no glass, 16x16 pixels, 4 spp, 5 bins,
+    two tiles, two sample chunks, one compaction stage) with the same
+    injected uniforms on the card and on CPU tensors: frames within the CPU
+    parity test's tolerances on all but 0.5 % of the lanes' pixels, traced
+    segments within that share."""
+    frames, segs = {}, {}
+    for device in ("cuda", "cpu"):
+        rgb, spec = O.RGBPipeline2D(), O.SpectralRadiancePipeline2D()
+        cam = O.PinholeCamera((16, 16), parent=scenes.cornell_box(glass=False),
+                              transform=T.translate(0, 0, -3.3),
+                              pipelines=[rgb, spec], device=device)
+        cam.pixel_samples = 4
+        cam.spectral_bins = 5
+        cam.max_wavefront_iters = 8
+        cam.tile_size = 128
+        cam.samples_per_task = 2
+        cam.compact_schedule = ((3, 2),)
+        cam.quiet = True
+        cam.observe(seed=5, **injected_streams(fused.N_UNIFORMS))
+        frames[device] = (rgb.xyz_frame, spec.frame)
+        segs[device] = cam._stats_rays
+    lanes = 16 * 16 * 4
+    allowed = max(1, int(MAX_FLIP * lanes))
+    apart = {}
+    for k, (a, b) in zip(("rgb", "spectral"), zip(frames["cuda"], frames["cpu"])):
+        for f in ("mean", "variance"):
+            x = np.asarray(getattr(a, f)).reshape(256, -1)
+            y = np.asarray(getattr(b, f)).reshape(256, -1)
+            if not np.isfinite(x).all():
+                fail(f"observers: card frame {k} {f} is not finite")
+            apart[f"{k}_{f}"] = int((~np.isclose(
+                x, y, rtol=OBS_FRAME_RTOL * (10 if f == "variance" else 1),
+                atol=OBS_FRAME_ATOL).all(-1)).sum())
+    seg_dev = abs(segs["cuda"] - segs["cpu"]) / segs["cpu"]
+    out = dict(pixels=256, lanes=lanes, allowed_pixels=allowed,
+               pixels_apart=apart, segments=segs, segments_rel_dev=seg_dev)
+    if max(apart.values()) > allowed or seg_dev > MAX_FLIP:
+        fail(f"observers: card and CPU disagree on the small observation: {out}")
+    return out
+
+
+def phase_observers(T, fused, scenes):
+    """The observer layer: the furnace through observers, the golden
+    Cornell blocks, the card against the CPU on one small observation, and
+    the five scenes of benchmarks/suite.py at its sizes, each timed by the
+    suite's protocol with its launches counted and held to its route's."""
+    from source_tpu_torch.optical import observer as O
+    furnace = observer_furnace(T, O)
+    golden = golden_gate(T, O, scenes)
+    cpu = card_against_cpu_observe(T, O, scenes, fused)
+    # the MIS scene is the one fused scene at 12 bins: its forward library
+    # is held to the plain version here only
+    k3_mis = span_inputs_against_plain(T, O, fused, scenes, "mis")
+    rows = {}
+    for name in SUITE:
+        t0 = time.perf_counter()
+        cam, rgb = suite_camera(T, O, scenes, name)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        median, spread, stalls, passes = observe_timed(cam)
+        peak = torch.cuda.max_memory_allocated() - base
+        frame = np.asarray(rgb.xyz_frame.mean)
+        if not np.isfinite(frame).all() or not frame.mean() >= 0.0:
+            fail(f"observers: {name}: the frame is not finite or its mean is "
+                 f"negative ({frame.mean()})")
+        launches, want, calls, breakdown = observe_breakdown(T, fused, cam)
+        if launches != want or not any(launches.values()):
+            fail(f"observers: {name}: want exactly its route's launches "
+                 f"{want} (calls {calls}), got {launches}")
+        s = SUITE[name]
+        _traces, spans, least, most = route_calls(cam, s)
+        if (calls["fused_forward_span"] != spans
+                or not least <= calls["trace_step"] <= most):
+            fail(f"observers: {name} must take the {s['route']} route: want "
+                 f"{spans} fused spans and {least}..{most} traced bounces a "
+                 f"pass, got {calls}")
+        rows[name] = dict(
+            suite_line=f"benchmarks/suite.py:{s['line']}",
+            pixels=list(s["pixels"]), spp=s["spp"], bins=s["bins"],
+            spectral_rays=s.get("spectral_rays", 1), max_depth=s["max_depth"],
+            max_iters=s["iters"], compact_schedule=cam.compact_schedule,
+            resolved_schedule=(cam._auto_schedule_cache[1]
+                               if s["schedule"] == "auto" else s["schedule"]),
+            route=s["route"], want_spans=spans, want_bounces=[least, most],
+            rays_per_s_median=median, rays_per_s_spread=spread,
+            stalls_excluded=stalls, timed_passes=passes,
+            peak_bytes=peak, frame_mean_xyz=[float(v) for v in
+                                             frame.reshape(-1, 3).mean(0)],
+            launches_per_pass=launches, calls_per_pass=calls,
+            breakdown=breakdown, wall_s=time.perf_counter() - t0)
+    emit("observers", gpu=gpu_line(), furnace=furnace, golden=golden,
+         card_against_cpu=cpu, fused_span_fwd_mis=k3_mis, scenes=rows)
+    return {name: r["launches_per_pass"] for name, r in rows.items()}
+
+
 def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
-                 wave_launches, mesh_rows, mesh_launches, wstep, mods):
+                 wave_launches, mesh_rows, mesh_launches, wstep, mods, obs):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -3048,7 +3491,9 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
     and ``render_loss_and_grads`` with ``rng="kernel"``, and the profiling
     kernels those of the fusedprof chains. The rows of K6 and K7 also carry
     ``step_launches``: their launches in one differentiable wavefront step at
-    remat_block 1 (phases wstep and modifiers)."""
+    remat_block 1 (phases wstep and modifiers). Every row carries
+    ``observer_launches``: its kernel's launches in one observe() pass of
+    each of the suite's five scenes (phase observers), where nonzero."""
     src = "source_tpu_torch/csrc/"
     rows = []
     for name, m, line, source, count in (
@@ -3142,6 +3587,11 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
     rows[-2]["step_launches"] = dict(mesh=wstep["mesh"]["mesh_bvh_winner"])
+    for row in rows:
+        base = row["name"].split()[0]
+        row["observer_launches"] = (
+            {} if "(" in row["name"] else
+            {k: v[base] for k, v in obs.items() if v[base]})
     return {"kernels": rows}
 
 
@@ -3150,7 +3600,8 @@ def main():
     ap.add_argument("--phases",
                     default="env,kernels,furnace,main,grad_kernels,step,"
                             "krng,fusedprof,bvh_kernels,wavefront,"
-                            "mesh_kernels,mesh_furnace,mesh,wstep,modifiers")
+                            "mesh_kernels,mesh_furnace,mesh,wstep,modifiers,"
+                            "observers")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3163,10 +3614,11 @@ def main():
     t_start = time.perf_counter()
     cornell = grad = launches = step_launches = krng = prof = None
     bvh_row = wave = None
-    mesh_rows = mesh_launches = wstep = mods = None
+    mesh_rows = mesh_launches = wstep = mods = obs = None
     mesh_furnace = False
     if "env" in phases:
-        phase_env(fused, analytic_bvh)
+        phase_env(fused, analytic_bvh,
+                  (SUITE["mis"]["bins"],) if "observers" in phases else ())
     if "kernels" in phases:
         cornell = phase_kernels(T, fused, scenes)
     if "furnace" in phases:
@@ -3196,16 +3648,18 @@ def main():
         wstep = phase_wstep(T, fused, scenes)
     if "modifiers" in phases:
         mods = phase_modifiers(T, fused, scenes)
+    if "observers" in phases:
+        obs = phase_observers(T, fused, scenes)
     emit("total", seconds=time.perf_counter() - t_start)
     if None in (cornell, grad, launches, step_launches, krng, prof, bvh_row,
                 wave, mesh_rows, mesh_launches, wstep,
-                mods) or not mesh_furnace:
+                mods, obs) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
                                   krng, prof, bvh_row, wave, mesh_rows,
-                                  mesh_launches, wstep, mods)),
+                                  mesh_launches, wstep, mods, obs)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ volume and surface stages as tensor programs) for the rest.
 L2 loss with respect to every float table of the scene on either route (on
 the wavefront route by autograd through ``trace_step`` in checkpoint
 blocks), and with respect to each mesh's vertices, transform and normals.
-Entry points take ``device=`` and default to ``"cuda"``; they raise if no
-card is there.
+The observers and pipelines (``optical.observer``: cameras, sensors, RGB,
+power, radiance and spectral pipelines, samplers) drive ``trace_rays``
+through ``observe()``, as the reference's users do. Entry points take
+``device=`` and default to ``"cuda"``; they raise if no card is there.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,10 @@ inhomogeneous volumes); with ``differentiable=True`` it traces through
 autograd graph to the scene's tensors. ``render_loss_and_grads`` is the
 differentiable rendering step: an L2 loss against a target and its gradient
 with respect to every float table of the scene, each mesh's tables
-included. Sharded entry points are not part of this package yet.
+included. ``RenderEngine`` and ``SerialEngine`` are the reference's
+render-engine contract; an observer runs its tile loop through one, its
+``render_engine``. Sharded entry points and engines are not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from ..compiler.scene import CompiledScene, resolve_device
 from ..tracer.fused import TABLE_FIELDS
 from ..tracer.wavefront import RayConfig, init_rays, trace_rays, trace_rays_diff
 
-__all__ = ["render_batch", "render_loss_and_grads", "MESH_FIELDS"]
+__all__ = ["render_batch", "render_loss_and_grads", "MESH_FIELDS",
+           "RenderEngine", "SerialEngine"]
 
 # the float tables of a mesh instance that ``render_loss_and_grads``
 # differentiates (MeshTables fields)
@@ -107,3 +111,30 @@ def render_loss_and_grads(scene: CompiledScene, cfg: RayConfig, origin,
         grads["meshes"] = [{f: grad_of(ml[f]) for f in MESH_FIELDS}
                            for ml in mesh_leaves]
     return loss.detach(), grads
+
+
+class RenderEngine:
+    """Render-engine strategy contract (reference core/workflow.py:35-97).
+
+    The reference farms picklable (task, render, update) triples to worker
+    processes; here an observer hands ``run`` its tiles (``render`` traces a
+    tile on the observer's device, ``update`` keeps its device sums), and
+    ``worker_count()`` says how many devices an engine spans."""
+
+    def run(self, tasks, render, update, render_args=(), update_args=()):
+        raise NotImplementedError
+
+    def worker_count(self):
+        raise NotImplementedError
+
+
+class SerialEngine(RenderEngine):
+    """In-order host loop (reference core/workflow.py:100-120): a debugging
+    aid and the semantics reference of the engines."""
+
+    def run(self, tasks, render, update, render_args=(), update_args=()):
+        for task in tasks:
+            update(render(task, *render_args), *update_args)
+
+    def worker_count(self):
+        return 1

@@ -6,8 +6,10 @@ glass box and a glass sphere); ``zoo`` holds every other built-in material
 and all six solids; ``furnace`` is the exact-answer check: inside a unit
 emitter every ray returns radiance 1 in every bin. ``csg_world`` is the CSG
 demo of the reference's suite (demos/csg.py), the wavefront route's main
-scene; ``leaf_field`` is a deep analytic-BVH input: every record kind of
-the BVH kernel in a tree of some 130 nodes. ``mesh_world`` is the mesh demo
+scene; ``prism_world`` (demos/prism.py) and ``mis_world``
+(demos/multiple_importance_sampling.py) are the suite's other two worlds.
+``leaf_field`` is a deep analytic-BVH input: every record kind of the BVH
+kernel in a tree of some 130 nodes. ``mesh_world`` is the mesh demo
 of the reference's suite (demos/mesh_render.py): a dispersive-glass
 icosphere and a rough-metal torus knot over Lambert walls under an emitting
 box; ``big_mesh_world`` puts the 1.31M-triangle icosphere of
@@ -43,7 +45,8 @@ from .primitive import (
     Box, Cone, Cylinder, Intersect, Parabola, Sphere, Subtract, Torus, Union,
 )
 
-__all__ = ["cornell_box", "zoo", "furnace", "csg_world", "leaf_field",
+__all__ = ["cornell_box", "zoo", "furnace", "csg_world", "prism_world",
+           "mis_world", "leaf_field",
            "icosphere", "torus_knot", "mesh_world", "big_mesh_world",
            "cube_mesh", "blob_mesh", "watertight_cases", "MESH_CAMERA",
            "modifier_world", "UserLambert", "UserMirror", "glow",
@@ -221,6 +224,86 @@ def csg_world():
         material=Checkerboard(4, d65_white, d65_white, 0.4, 0.8))
     Box(Point3D(-100, -100, -100), Point3D(100, 100, 100), parent=world,
         material=UniformSurfaceEmitter(d65_white, 0.1))
+    return world
+
+
+def _equilateral_prism(width=0.06, height=0.15, parent=None, transform=None,
+                       material=None):
+    """An equilateral prism along +y: two angled slabs shaved off a
+    rectangular bar (reference demos/prism.py ``equilateral_prism``)."""
+    half_width = width / 2
+    mid_point = half_width / 2
+    centre = Box(Point3D(-half_width * 1.001, 0, 0),
+                 Point3D(half_width * 1.001, height, width))
+    left = Box(
+        Point3D(0, -0.001, 0), Point3D(width, height + 0.001, width * 2),
+        transform=translate(half_width, 0, 0) * rotate(30, 0, 0),
+    )
+    right = Box(
+        Point3D(-width, -0.001, 0), Point3D(0, height + 0.001, width * 2),
+        transform=translate(-half_width, 0, 0) * rotate(-30, 0, 0),
+    )
+    prism = Subtract(Subtract(centre, left), right)
+    prism.parent = parent
+    prism.transform = ((transform or translate(0, 0, 0))
+                       * translate(0, 0, -mid_point))
+    prism.material = material
+    return prism
+
+
+def _light_box(parent, transform=None):
+    """A white source behind a slit (reference demos/prism.py
+    ``light_box``)."""
+    node = Node(parent)
+    if transform is not None:
+        node.transform = transform
+    outer = Box(Point3D(-0.01, 0, -0.05), Point3D(0.01, 0.15, 0.0))
+    slit = Box(Point3D(-0.0015, 0.03, -0.045), Point3D(0.0015, 0.12, 0.0001))
+    housing = Subtract(outer, slit)
+    housing.parent = node
+    housing.material = Lambert(ConstantSF(0.1))
+    Box(Point3D(-0.0015, 0.03, -0.045), Point3D(0.0015, 0.12, -0.04),
+        parent=node, material=UniformSurfaceEmitter(d65_white, 250))
+    return node
+
+
+def prism_world():
+    """The prism demo (reference demos/prism.py ``build_world``): white
+    light through a slit onto an SF11 equilateral prism (a CSG ``Subtract``
+    of boxes), dispersed onto a Lambert floor."""
+    world = World()
+    Box(Point3D(-10, -0.1, -10), Point3D(10, 0, 10), parent=world,
+        material=Lambert())
+    _equilateral_prism(0.06, 0.15, parent=world, material=schott("SF11"),
+                       transform=translate(0, 1e-6, -0.01))
+    _light_box(parent=world, transform=rotate(-35.5, 0, 0)
+               * translate(0.10, 0, 0) * rotate(90, 0, 0))
+    return world
+
+
+def mis_world():
+    """The multiple-importance-sampling demo (reference
+    demos/multiple_importance_sampling.py ``build_world``): four emitting
+    spheres of equal power, radii 4x smaller each step, over four tilted
+    RoughConductor plates of increasing roughness, a Lambert floor and
+    backdrop."""
+    world = World()
+    Box(Point3D(-10, -0.1, -10), Point3D(10, 0, 10), parent=world,
+        material=Lambert(ConstantSF(0.5)))
+    Box(Point3D(-10, 0, 4), Point3D(10, 10, 4.1), parent=world,
+        material=Lambert(ConstantSF(0.2)))
+    radii = [0.5, 0.125, 0.03125, 0.0078125]
+    for i, r in enumerate(radii):
+        scale = (radii[0] / r) ** 2  # constant total power
+        Sphere(r, parent=world, transform=translate(-1.8 + 1.2 * i, 2.2, 2.0),
+               material=UniformSurfaceEmitter(d65_white, scale))
+    n = ConstantSF(0.9)
+    k = ConstantSF(6.0)
+    for i, rough in enumerate([0.02, 0.05, 0.15, 0.4]):
+        Box(Point3D(-2.4, -0.02, -0.3), Point3D(2.4, 0.0, 0.3), parent=world,
+            transform=translate(0, 0.35 + 0.45 * i, 0.6 + 0.6 * i)
+            * rotate(0, 62 - 8 * i, 0),
+            material=RoughConductor(n, k, rough))
     return world
 
 

@@ -58,7 +58,7 @@ from . import fused
 from .intersect import HitRecord, intersect_scene, mesh_contains
 
 __all__ = ["RayConfig", "RayState", "init_rays", "trace_step", "trace_rays",
-           "trace_rays_diff"]
+           "trace_rays_diff", "alive_profile", "schedule_from_profile"]
 
 _PI = 3.141592653589793
 _2PI = 2.0 * _PI
@@ -1005,3 +1005,57 @@ def trace_step(scene: CompiledScene, cfg: RayConfig, state: RayState, u,
         segments=state.segments + torch.sum(alive, dtype=torch.int32),
         overflow=state.overflow,
     )
+
+
+def alive_profile(scene: CompiledScene, cfg: RayConfig, state: RayState,
+                  generator=None, u_all=None):
+    """Per-bounce alive-lane counts, i32[cfg.max_iters]: the telemetry a
+    compaction schedule is chosen from. Runs ``trace_step`` for every one of
+    ``max_iters`` bounces (no early exit, no compaction) and counts the
+    lanes alive as each bounce starts; the counts stay on the device until
+    the caller reads them.
+
+    The bounce uniforms come from ``generator``, one [N, n_uniforms] draw a
+    bounce, or from ``u_all(start, 1, n_lanes)`` as in ``trace_rays``."""
+    _check_device(scene, state)
+    n_u = _n_uniforms(scene)
+    n = state.origin.shape[0]
+    counts = []
+    st = state
+    with torch.no_grad():
+        for i in range(cfg.max_iters):
+            counts.append(torch.sum(st.alive, dtype=torch.int32))
+            if u_all is not None:
+                u = u_all(i, 1, n)[0]
+            else:
+                u = torch.rand((n, n_u), generator=generator,
+                               dtype=torch.float32, device=st.origin.device)
+            st = trace_step(scene, cfg, st, u, differentiable=False)
+    return torch.stack(counts)
+
+
+def schedule_from_profile(counts, n_lanes, headroom=4, max_divisor=16,
+                          min_stage_steps=2):
+    """A ``compact_schedule`` derived from measured per-bounce alive counts.
+
+    Conservative by construction: a stage halves the CURRENT batch only once
+    the measured alive fraction at that depth is below 1/(headroom *
+    cumulative divisor), so with headroom 4 a later tile must be 4x more
+    alive than the measured one to overflow. Returns ((steps, divisor), ...)
+    with per-stage (relative) divisors."""
+    fracs = [c / max(1, n_lanes) for c in counts]
+    schedule = []
+    cum_div = 1
+    steps_in_stage = 0
+    for f in fracs:
+        steps_in_stage += 1
+        next_div = cum_div * 2
+        if (
+            steps_in_stage >= min_stage_steps
+            and cum_div < max_divisor
+            and f * headroom * next_div <= 1.0
+        ):
+            schedule.append((steps_in_stage, 2))
+            cum_div = next_div
+            steps_in_stage = 0
+    return tuple(schedule)
