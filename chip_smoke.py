@@ -35,7 +35,15 @@ forward and differentiable (phase ``modifiers``); and the observer layer
 Cornell blocks, the card against the CPU on a small observation with
 injected uniforms, and ``PinholeCamera.observe()`` on the five scenes of
 benchmarks/suite.py at its sizes, timed by its protocol (one warm pass,
-three timed passes), launches held exactly to each scene's route. Every
+three timed passes), launches held exactly to each scene's route; the
+per-ray entry points (phase ``queries``): ``World.hit`` and ``contains``
+on analytic, CSG and mesh worlds, ``optical.Ray.sample`` of 1 048 576 rays
+in the furnace and ``LoggingRay``, each against CPU tensors with exact
+launches, the kernels they reach held to their plain versions at their
+inputs; and the two lens demos (phase ``lenses``): the Cooke triplet's
+analytic-BVH inputs recorded from an ``observe()`` pass and held to the
+plain versions, a small observation against CPU tensors, and both demos at
+their image sizes and bins by the suite's protocol. Every
 phase prints one JSON line; any failure exits non-zero. Without a CUDA
 device the script exits 2 and prints no result.
 ``--phases krng,fusedprof`` runs a subset while developing (the last line is
@@ -46,6 +54,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3480,8 +3489,604 @@ def phase_observers(T, fused, scenes):
     return {name: r["launches_per_pass"] for name, r in rows.items()}
 
 
+# --- the per-ray entry points (phase queries) ---------------------------------
+
+QUERY_TOL = 1e-5        # card against CPU tensors
+QUERY_FAN = 256         # World.hit rays of each fan
+CONTAINS_POINTS = 2048  # of the demo's 20 000: a World.contains call each
+SAMPLE_COUNT = 1 << 20  # optical.Ray.sample's batch
+LOG_H = (-0.008, -0.004, 0.0, 0.004, 0.008)  # demos/optics/logging_trajectories.py:30
+
+
+def hit_fields(ix, prims):
+    """An Intersection as its primitive's index, its exiting flag, its t,
+    the hit, inside and outside points and the normal (13 floats), and for
+    a mesh the triangle and barycentrics; None for a miss."""
+    if ix is None:
+        return None
+    vals = [ix.ray_distance]
+    for k in ("hit_point", "inside_point", "outside_point", "normal"):
+        v = getattr(ix, k)
+        vals += [v.x, v.y, v.z]
+    out = dict(primitive=prims.index(ix.primitive), exiting=bool(ix.exiting),
+               vals=np.asarray(vals))
+    if hasattr(ix, "triangle"):
+        out.update(triangle=ix.triangle, uvw=np.asarray([ix.u, ix.v, ix.w]))
+    return out
+
+
+def hits_apart(card, cpu):
+    """Indices of the queries whose card answer differs from the CPU's: hit
+    or miss, primitive, exiting, a value beyond QUERY_TOL, or another mesh
+    triangle (allowed only at a tie within 1 ulp of t, as in phase
+    mesh_kernels; the two triangles' hit points then agree, their
+    barycentrics and normals need not). Returns (apart, ties)."""
+    apart, ties = [], 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if (a is None) != (b is None):
+            apart.append(i)
+            continue
+        if a is None:
+            continue
+        if a["primitive"] != b["primitive"] or a["exiting"] != b["exiting"]:
+            apart.append(i)
+            continue
+        vals = slice(None)
+        if a.get("triangle", -1) != b.get("triangle", -1):
+            ulp = abs(int(np.float32(a["vals"][0]).view(np.int32))
+                      - int(np.float32(b["vals"][0]).view(np.int32)))
+            if ulp > 1:
+                apart.append(i)
+                continue
+            ties += 1
+            vals = slice(0, 4)  # t and the hit point
+        elif "uvw" in a and not np.allclose(a["uvw"], b["uvw"], rtol=QUERY_TOL,
+                                            atol=QUERY_TOL):
+            apart.append(i)
+            continue
+        if not np.allclose(a["vals"][vals], b["vals"][vals], rtol=QUERY_TOL,
+                           atol=QUERY_TOL):
+            apart.append(i)
+    return apart, ties
+
+
+def query_fan(n, centre, spread, depth, rng):
+    """``n`` rays from a disc ``depth`` in front of ``centre`` (along -z),
+    aimed at it with a spread of directions, not unit length."""
+    o = np.c_[rng.uniform(-spread, spread, (n, 2)) + centre[:2],
+              np.full(n, centre[2] - depth)]
+    d = np.c_[rng.uniform(-0.1, 0.1, (n, 2)), np.ones(n)]
+    return o, d * rng.uniform(0.5, 2.0, (n, 1))
+
+
+def world_hits(T, world, o, d, device):
+    from source_tpu_torch.core import Ray
+    prims = world.primitives
+    return [hit_fields(world.hit(Ray(T.Point3D(*a), T.Vector3D(*b)),
+                                 device=device), prims)
+            for a, b in zip(o, d)]
+
+
+def as_queried(o, d):
+    """A batch of World.hit's rays as it hands them to intersect_scene:
+    f32 origins, f32 directions divided by their f32 norm on the host."""
+    o32 = np.asarray(o, np.float32)
+    d32 = np.stack([x / float(np.linalg.norm(x))
+                    for x in np.asarray(d, np.float32)])
+    return torch.as_tensor(o32).cuda(), torch.as_tensor(d32).cuda()
+
+
+def counted(fused, fn):
+    """(result, launches of every kernel) of ``fn()``, counts from 0."""
+    torch.cuda.synchronize()
+    reset_counts(fused)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(fused)
+
+
+def want_only(launches, where, **want):
+    """Fail unless exactly ``want`` were launched and nothing else."""
+    if launches != dict(NO_LAUNCHES, **want):
+        fail(f"queries: {where}: want exactly {want} launched, got "
+             f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def hit_walk(T, scenes, device):
+    """demos/core/ray_intersection_hitpoints.py:33-45: World.hit from the
+    box's corner, relaunched from each hit's inside or outside point."""
+    from source_tpu_torch.core import Ray
+    world, _solid = scenes.hitpoints_world()
+    ray = Ray(T.Point3D(0.45, 0.45, -2), T.Vector3D(0, 0, 1))
+    out = []
+    while len(out) < 16:
+        ix = world.hit(ray, device=device)
+        if ix is None:
+            break
+        out.append(hit_fields(ix, world.primitives))
+        p2w = ix.primitive_to_world
+        ray = Ray((ix.outside_point if ix.exiting else ix.inside_point)
+                  .transform(p2w), ray.direction)
+    return out
+
+
+def query_hits(T, fused, scenes, bvh):
+    """The hit walk and two fans of World.hit: on the hitpoints solid (one
+    BVH item, below LEAF_BVH_MIN_LEAVES: the streaming route, no kernel)
+    and on the logging demo's lens and screen (two items: one K6 launch a
+    query); the card against CPU tensors; K6 at the lens fan's rays
+    against its plain versions (bvh_case)."""
+    walk, walk_launches = counted(fused, lambda: hit_walk(T, scenes, "cuda"))
+    walk_cpu = hit_walk(T, scenes, "cpu")
+    apart, _ = hits_apart(walk, walk_cpu)
+    if len(walk) < 2 or len(walk) != len(walk_cpu) or apart:
+        fail(f"queries: the hit walk crosses {len(walk)} surfaces on the card, "
+             f"{len(walk_cpu)} on the CPU, apart at {apart}")
+    want_only(walk_launches, "hit walk")
+    rng = np.random.default_rng(41)
+    out = dict(walk=dict(surfaces=len(walk), z_local=[w["vals"][3] for w in walk],
+                         launches={k: v for k, v in walk_launches.items() if v}))
+    fans = (("hitpoints", scenes.hitpoints_world()[0], (0.0, 0.0, 2.0), 0.7, 4.0),
+            ("lens", scenes.logging_lens_world(), (0.0, 0.0, 0.003), 0.07, 0.05))
+    for name, world, centre, spread, depth in fans:
+        o, d = query_fan(QUERY_FAN, centre, spread, depth, rng)
+        world.build_accelerator(device="cuda")
+        t0 = time.perf_counter()
+        card, launches = counted(fused, lambda: world_hits(T, world, o, d,
+                                                           "cuda"))
+        wall = time.perf_counter() - t0
+        cpu = world_hits(T, world, o, d, "cpu")
+        apart, _ = hits_apart(card, cpu)
+        scene = world._build_query_scene("cuda")
+        k6 = QUERY_FAN if scene.leaf_bvh is not None else 0
+        want_only(launches, f"{name} fan", **({"analytic_bvh_winner": k6}
+                                              if k6 else {}))
+        hits = sum(h is not None for h in cpu)
+        if apart or not 0 < hits < QUERY_FAN:
+            fail(f"queries: {name} fan: {len(apart)} of {QUERY_FAN} queries "
+                 f"differ between card and CPU ({hits} hits)")
+        out[name] = dict(queries=QUERY_FAN, hits=hits, launches=k6,
+                         bvh_items=len(scene.bvh_leaf_ids), ms_per_query=
+                         wall * 1e3 / QUERY_FAN)
+        if k6:
+            oq, dq = as_queried(o, d)
+            out[name]["analytic_bvh_winner"] = bvh_case(
+                f"query_{name}_fan", scene, oq, dq,
+                len(scene.bvh_leaf_ids) >= 64, bvh)
+    return out
+
+
+def contains_grid(T, world, pts, device):
+    return [len(world.contains(T.Point3D(*p), device=device)) for p in pts]
+
+
+def query_contains(T, fused, scenes):
+    """demos/core/world_contains_point.py: World.contains over points
+    uniform in [-0.6, 0.6]^3 around a sphere of radius 0.5 (2 048 of the
+    demo's 20 000, each a call), card equal to CPU on every point, and the
+    volume fraction within the demo's 5 % of the closed form."""
+    from source_tpu_torch.optical.material import AbsorbingSurface
+    from source_tpu_torch.primitive import Sphere
+    world = T.World()
+    Sphere(0.5, parent=world, material=AbsorbingSurface())
+    pts = np.random.default_rng(0).uniform(-0.6, 0.6, (CONTAINS_POINTS, 3))
+    world.build_accelerator(device="cuda")
+    t0 = time.perf_counter()
+    card, launches = counted(fused, lambda: contains_grid(T, world, pts, "cuda"))
+    wall = time.perf_counter() - t0
+    cpu = contains_grid(T, world, pts, "cpu")
+    want_only(launches, "contains grid")
+    differ = int(sum(a != b for a, b in zip(card, cpu)))
+    theory = 4.0 / 3.0 * math.pi * 0.5 ** 3
+    err = abs(np.mean(np.asarray(card) > 0) * 1.2 ** 3 - theory) / theory
+    if differ or err >= 0.05:
+        fail(f"queries: contains grid: {differ} points differ between card "
+             f"and CPU, volume error {err}")
+    return dict(points=CONTAINS_POINTS, demo_points=20000, differ=differ,
+                volume_rel_err=err, ms_per_query=wall * 1e3 / CONTAINS_POINTS)
+
+
+def query_mesh(T, fused, scenes):
+    """World.hit and contains on a closed icosphere(3) mesh: the card's
+    MeshIntersection (triangle, barycentrics) against the CPU's, a tie
+    within 1 ulp of t allowed; one K7 launch a hit and one a contains (its
+    +z probe); K7 against its plain versions at the hits' rays
+    (mesh_case, with times and bound) and at the probes (mesh_parity)."""
+    from source_tpu_torch.core import Ray
+    from source_tpu_torch.optical.material import AbsorbingSurface
+    from source_tpu_torch.primitive import Mesh
+    from source_tpu_torch.tracer import mesh_bvh as mb
+    from source_tpu_torch.tracer import meshtrace as mt
+    world = T.World()
+    Mesh(*scenes.icosphere(3), closed=True, parent=world,
+         transform=T.translate(0, 0, 3) * T.rotate(20, 10, 0),
+         material=AbsorbingSurface())
+    rng = np.random.default_rng(43)
+    o, d = query_fan(QUERY_FAN // 2, (0.0, 0.0, 3.0), 1.2, 3.0, rng)
+    oi, di = ball_rays(QUERY_FAN // 2, 0.8, rng)
+    o = np.concatenate([o, oi + [0.0, 0.0, 3.0]])
+    d = np.concatenate([d, di])
+    pts = np.concatenate([oi[:64] + [0.0, 0.0, 3.0],
+                          rng.uniform(-1.5, 1.5, (64, 3)) + [0.0, 0.0, 3.0]])
+    world.build_accelerator(device="cuda")
+    card, hit_launches = counted(fused, lambda: world_hits(T, world, o, d,
+                                                           "cuda"))
+    cpu = world_hits(T, world, o, d, "cpu")
+    want_only(hit_launches, "mesh hits", mesh_bvh_winner=len(o))
+    apart, ties = hits_apart(card, cpu)
+    inside, in_launches = counted(fused, lambda: contains_grid(T, world, pts,
+                                                               "cuda"))
+    want_only(in_launches, "mesh contains", mesh_bvh_winner=len(pts))
+    differ = int(sum(a != b for a, b in zip(inside, contains_grid(
+        T, world, pts, "cpu"))))
+    hits = sum(h is not None for h in cpu)
+    if apart or differ or not 0 < hits < len(o) or not 0 < sum(inside) < len(pts):
+        fail(f"queries: mesh: {len(apart)} hits and {differ} contains differ "
+             f"between card and CPU ({hits} hits, {sum(inside)} inside)")
+    if not all("triangle" in h for h in card if h is not None):
+        fail("queries: a mesh hit did not return a MeshIntersection")
+    mesh = world._build_query_scene("cuda").meshes[0]
+    oq, dq = as_queried(o, d)
+    ol, dl = mesh_local(mesh, oq, dq)
+    case = mesh_case("query_mesh_hits", mesh, ol, dl, min_advance(oq), mb, mt)
+    pq = torch.as_tensor(pts, dtype=torch.float32).cuda()
+    up = torch.zeros_like(pq)
+    up[:, 2] = 1.0
+    pl, ul = mesh_local(mesh, pq, up)
+    probe = mesh_parity("query_mesh_probes", mesh, pl, ul,
+                        torch.zeros_like(pq[:, 0]), mb, mt)[0]
+    return dict(hits=hits, queries=len(o), ties=ties, points=len(pts),
+                inside=int(sum(inside)), launches=dict(
+                    hits=hit_launches["mesh_bvh_winner"],
+                    contains=in_launches["mesh_bvh_winner"]),
+                mesh_bvh_winner=case, probes=probe)
+
+
+def query_sample(T, fused, scenes):
+    """optical.Ray.sample in the unity-emitter furnace: one batch of
+    SAMPLE_COUNT identical rays, 15 bins, max_depth 4 (12 iterations, one
+    span): exactly 1.0 in every bin from exactly one fused_span_fwd launch;
+    wall ms and peak device memory of the call; K3 against span_fwd_plain
+    at the span's own inputs, recorded from a first call."""
+    from source_tpu_torch.optical import Ray as OpticalRay
+    world = scenes.furnace()
+    ray = OpticalRay(origin=(0, 0, 0), direction=(0, 0, 1), bins=15,
+                     extinction_prob=0.0, max_depth=4)
+    real, calls = fused.fused_forward_span, []
+
+    def record(tab, desc, spec, state, u_all=None, **kw):
+        if u_all is not None:
+            calls.append((spec, tab, desc, fused.pack_state(state),
+                          fused.pack_u(u_all.to(torch.float32))))
+        return real(tab, desc, spec, state, u_all, **kw)
+
+    fused.fused_forward_span = record
+    try:
+        ray.sample(world, SAMPLE_COUNT, seed=1)
+    finally:
+        fused.fused_forward_span = real
+    if len(calls) != 1:
+        fail(f"queries: Ray.sample made {len(calls)} fused spans, want 1")
+    k3 = span_against_plain("ray_sample_furnace", fused, *calls[0])
+    del calls[:]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    spec, launches = counted(fused, lambda: ray.sample(world, SAMPLE_COUNT,
+                                                       seed=2))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    want_only(launches, "Ray.sample", fused_span_fwd=1)
+    if not bool((spec.samples == 1.0).all()):
+        fail(f"queries: Ray.sample in the furnace reads {spec.samples}, not "
+             "exactly 1.0")
+    return dict(count=SAMPLE_COUNT, bins=15, max_depth=4, wall_ms=wall * 1e3,
+                peak_bytes=peak, ray_count=ray.ray_count, fused_span_fwd=k3,
+                launches=1)
+
+
+def logging_traces(T, world, device, heights, max_depth=8):
+    """LoggingRay.trace from (h, 0, -0.05) along +z for each height, the
+    bounce uniforms made on the CPU from the bounce's index (the same on
+    the card and the CPU): the path vertices and per-vertex records."""
+    from source_tpu_torch.optical import LoggingRay
+
+    def u_all(i, n_steps, n_lanes):
+        g = torch.Generator().manual_seed(1000 + i)
+        return torch.rand((n_steps, n_lanes, 10), generator=g).to(device)
+
+    out = []
+    for h in heights:
+        ray = LoggingRay(origin=(h, 0.0, -0.05), direction=(0, 0, 1), bins=4,
+                         max_depth=max_depth)
+        spectrum = ray.trace(world, device=device, u_all=u_all)
+        out.append((np.asarray(ray.path_vertices), ray.path_intersections,
+                    spectrum))
+    return out
+
+
+def query_logging(T, fused, scenes):
+    """LoggingRay: tests/test_core_utils.py::test_logging_ray's mirror and
+    emitter on the card with that test's assertions, and the five lens
+    trajectories of demos/optics/logging_trajectories.py, the card against
+    CPU tensors within QUERY_TOL; exactly two K6 launches a bounce (the
+    log's intersect_scene and trace_step's), 8 bounces a trace."""
+    from source_tpu_torch.optical import LoggingRay
+    from source_tpu_torch.optical.material import (
+        PerfectReflectingSurface, UnitySurfaceEmitter,
+    )
+    from source_tpu_torch.primitive import Box, Sphere
+    w = T.World()
+    Sphere(radius=5.0, parent=w, material=UnitySurfaceEmitter())
+    Box(lower=T.Point3D(-1, -1, 2), upper=T.Point3D(1, 1, 2.5), parent=w,
+        material=PerfectReflectingSurface())
+    ray = LoggingRay(origin=(0, 0, 0), direction=(0, 0, 1), bins=4, max_depth=8)
+    spectrum, mirror_launches = counted(fused, lambda: ray.trace(w))
+    recs, verts = ray.path_intersections, ray.path_vertices
+    ok = (np.allclose(spectrum, 1.0, atol=1e-4) and len(verts) >= 3
+          and abs(verts[1][2] - 2.0) < 1e-3 and verts[2][2] < 0
+          and len(recs) == len(verts) - 1 and recs[0]["entity"] == 1
+          and recs[1]["entity"] == 0 and recs[0]["material"] != recs[1]["material"]
+          and not recs[0]["exiting"] and abs(recs[0]["normal"][2] + 1.0) < 1e-4
+          and np.allclose(recs[1]["throughput"], 1.0, atol=1e-5))
+    if not ok:
+        fail(f"queries: LoggingRay's mirror and emitter on the card: "
+             f"{spectrum}, {verts}")
+    want_only(mirror_launches, "LoggingRay mirror", analytic_bvh_winner=16)
+    world = scenes.logging_lens_world()
+    card, lens_launches = counted(fused, lambda: logging_traces(
+        T, world, "cuda", LOG_H))
+    want_only(lens_launches, "LoggingRay lens", analytic_bvh_winner=16 * len(LOG_H))
+    cpu = logging_traces(T, world, "cpu", LOG_H)
+    worst = 0.0
+    for (vc, rc, sc), (vp, rp, sp) in zip(card, cpu):
+        if vc.shape != vp.shape or len(rc) != len(rp):
+            fail(f"queries: a lens trajectory has {len(vc)} vertices on the "
+                 f"card, {len(vp)} on the CPU")
+        worst = max(worst, float(np.abs(vc - vp).max()),
+                    float(np.abs(sc - sp).max()))
+        for a, b in zip(rc, rp):
+            for k in ("entity", "material", "exiting", "alive"):
+                if a[k] != b[k]:
+                    fail(f"queries: a lens trajectory's {k} differs")
+            for k in ("hit_point", "normal", "throughput", "t", "origin"):
+                worst = max(worst, float(np.abs(np.asarray(a[k], np.float64)
+                                                - b[k]).max()))
+    if worst > QUERY_TOL:
+        fail(f"queries: lens trajectories differ by {worst} card to CPU")
+    return dict(mirror_vertices=len(verts), lens_vertices=[len(v) for v, _, _ in card],
+                max_abs_card_cpu=worst,
+                launches=dict(mirror=16, lens=16 * len(LOG_H)))
+
+
+def phase_queries(T, fused, scenes, bvh):
+    """The per-ray entry points on the card, each against CPU tensors: the
+    World.hit walk and fans, World.contains, a mesh's MeshIntersection and
+    contains, optical.Ray.sample in the furnace, LoggingRay; each with its
+    exact launches and the kernels it reaches held to their plain versions
+    at its own inputs."""
+    t0 = time.perf_counter()
+    hits = query_hits(T, fused, scenes, bvh)
+    contains = query_contains(T, fused, scenes)
+    mesh = query_mesh(T, fused, scenes)
+    sample = query_sample(T, fused, scenes)
+    logging = query_logging(T, fused, scenes)
+    emit("queries", gpu=gpu_line(), tolerance=QUERY_TOL, hits=hits,
+         contains=contains, mesh=mesh, sample=sample, logging=logging,
+         wall_s=time.perf_counter() - t0)
+    return dict(
+        analytic_bvh_winner=dict(lens_fan=hits["lens"]["launches"],
+                                 logging_mirror=logging["launches"]["mirror"],
+                                 logging_lens=logging["launches"]["lens"]),
+        mesh_bvh_winner=mesh["launches"], fused_span_fwd=dict(ray_sample=1),
+        k6_row=hits["lens"]["analytic_bvh_winner"],
+        k7_row=mesh["mesh_bvh_winner"], k3_row=sample["fused_span_fwd"])
+
+
+# --- the lens demos observed (phase lenses) -------------------------------------
+
+# demos/observers/*: the image size, bins and depth of each, nothing cut but
+# the samples (250 a pixel in both demos, 8 here). The passes are paced by
+# the host, a traced bounce at a time (10.5 ms a bounce at the observer's
+# default tile of 4 096 pixels: 21.5 s a Cooke pass), so the timed passes
+# take tiles of LENS_TILE pixels, a quarter of the bounces for the same rays
+LENS_TILE = 16384
+LENS_DEMOS = {
+    "cooke": dict(source="demos/observers/cornell_box_cooke_triplet.py:68-80",
+                  pixels=(360, 360), spp=8, demo_spp=250, bins=15,
+                  max_depth=500, iters=64),
+    "metal": dict(source="demos/observers/metal_with_lens.py:60-72",
+                  pixels=(360, 240), spp=8, demo_spp=250, bins=20,
+                  max_depth=100, iters=64),
+}
+
+
+def lens_camera(T, O, scenes, name, device="cuda", pixels=None):
+    """The demo's TargetedCCDArray and pipelines on the port's world."""
+    s = LENS_DEMOS[name]
+    if name == "cooke":
+        world, parent, aperture = scenes.cooke_triplet_world()
+        pipes = [O.RGBPipeline2D(display_unsaturated_fraction=0.96)]
+        kw = dict(transform=T.rotate(0, 0, 180), width=0.035)
+    else:
+        from source_tpu_torch.optical.colour import ciexyz_x, ciexyz_y, ciexyz_z
+        world, parent, aperture = scenes.metal_lens_world()
+        pipes = [O.RGBPipeline2D(display_unsaturated_fraction=0.98),
+                 O.BayerPipeline2D(ciexyz_x, ciexyz_y, ciexyz_z,
+                                   display_unsaturated_fraction=0.98)]
+        kw = {}
+    cam = O.TargetedCCDArray(targets=[aperture], parent=parent, pipelines=pipes,
+                             pixels=pixels or s["pixels"], device=device, **kw)
+    cam.pixel_samples = s["spp"]
+    cam.spectral_bins = s["bins"]
+    cam.ray_max_depth = s["max_depth"]
+    cam.max_wavefront_iters = s["iters"]
+    cam.tile_size = LENS_TILE
+    cam.quiet = True
+    return cam, pipes[0]
+
+
+def lens_passes(T, fused, cam, record=None):
+    """One warm pass, then OBS_REPEATS timed passes (``accumulate=False``),
+    each with its launches counted from 0 and held exactly to its route's:
+    one K6 a traced bounce (the schedule's profile included), no fused
+    span; ``record``, if given, wraps the warm pass. Returns the timed
+    passes' figures and the median rays/s."""
+    from source_tpu_torch.tracer import wavefront as W
+    scene = T.compile_scene(cam.root, T.SpectralConfig(
+        cam.min_wavelength, cam.max_wavelength, cam.spectral_bins))
+    calls = CallCount((W, "trace_step"), (fused, "fused_forward_span"))
+    passes = []
+    try:
+        for p in range(1 + OBS_REPEATS):
+            if p:
+                for pipe in cam.pipelines:
+                    if hasattr(pipe, "accumulate"):
+                        pipe.accumulate = False
+            calls.n = dict.fromkeys(calls.n, 0)
+            with (record() if record and not p else contextlib.nullcontext()):
+                _, launches = counted(fused, lambda: cam.observe(seed=1 + p))
+            want = route_launches(scene, calls.n["trace_step"],
+                                  calls.n["fused_forward_span"])
+            if (launches != want or calls.n["fused_forward_span"]
+                    or not launches["analytic_bvh_winner"]):
+                fail(f"lenses: want exactly the wavefront route's launches "
+                     f"{want} (calls {calls.n}), got {launches}")
+            if p:
+                passes.append(dict(
+                    rays_per_s=cam.rays_per_second, render_time_s=cam.render_time,
+                    segments=cam._stats_rays, overflow=cam.compaction_overflow,
+                    traced_bounces=calls.n["trace_step"],
+                    analytic_bvh_winner=launches["analytic_bvh_winner"]))
+    finally:
+        calls.restore()
+    rates = sorted(x["rays_per_s"] for x in passes)
+    return passes, rates[len(rates) // 2], (rates[-1] - rates[0]) / rates[len(rates) // 2]
+
+
+@contextlib.contextmanager
+def k6_recorder(out):
+    """Records, in the first trace of a pass, the scene and the inputs of
+    the analytic-BVH kernel's first and third launches (the camera rays and
+    the third bounce's rays, parked as trace_step parks them)."""
+    from source_tpu_torch.optical.observer import base as B
+    from source_tpu_torch.tracer import intersect as I
+    real_k6, real_trace = I.analytic_bvh_winner, B.trace_rays
+    state = dict(traces=0, k6=0)
+
+    def trace(scene, *a, **kw):
+        state["traces"] += 1
+        if state["traces"] == 1:
+            out["scene"] = scene
+        return real_trace(scene, *a, **kw)
+
+    def k6(tables, meta, origin, direction, t_min, **kw):
+        if state["traces"] == 1:
+            if state["k6"] in (0, 2):
+                out[state["k6"]] = (origin.clone(), direction.clone())
+            state["k6"] += 1
+        return real_k6(tables, meta, origin, direction, t_min, **kw)
+
+    B.trace_rays, I.analytic_bvh_winner = trace, k6
+    try:
+        yield
+    finally:
+        B.trace_rays, I.analytic_bvh_winner = real_trace, real_k6
+
+
+def card_against_cpu_lens(T, O, scenes):
+    """A small Cooke-triplet observation (16x16 pixels, 2 spp, the demo's
+    15 bins, 16 iterations, one compaction stage) with the same injected
+    streams on the card and on CPU tensors: frames within phase observers'
+    tolerances on all but 0.5 % of the lanes' pixels, their atol taken
+    relative to the CPU frame's largest entry (the CCD reads power, ~1e-7 a
+    pixel, where an absolute 1e-6 would pass anything), traced segments
+    within that share."""
+    frames, segs = {}, {}
+    for device in ("cuda", "cpu"):
+        cam, rgb = lens_camera(T, O, scenes, "cooke", device=device,
+                               pixels=(16, 16))
+        cam.pixel_samples = 2
+        cam.max_wavefront_iters = 16
+        cam.tile_size = 128
+        cam.compact_schedule = ((4, 2),)
+        cam.observe(seed=5, **injected_streams(10))
+        frames[device] = rgb.xyz_frame
+        segs[device] = cam._stats_rays
+    lanes = 16 * 16 * 2
+    allowed = max(1, int(MAX_FLIP * lanes))
+    apart = {}
+    for f in ("mean", "variance"):
+        x = np.asarray(getattr(frames["cuda"], f)).reshape(256, -1)
+        y = np.asarray(getattr(frames["cpu"], f)).reshape(256, -1)
+        if not np.isfinite(x).all() or not np.abs(y).max() > 0:
+            fail(f"lenses: the small Cooke frame ({f}) is not finite or zero")
+        apart[f] = int((~np.isclose(
+            x, y, rtol=OBS_FRAME_RTOL * (10 if f == "variance" else 1),
+            atol=OBS_FRAME_ATOL * np.abs(y).max()).all(-1)).sum())
+    seg_dev = abs(segs["cuda"] - segs["cpu"]) / max(segs["cpu"], 1)
+    out = dict(pixels=256, lanes=lanes, allowed_pixels=allowed,
+               pixels_apart=apart, segments=segs, segments_rel_dev=seg_dev,
+               mean_y=float(np.asarray(frames["cpu"].mean)[..., 1].mean()))
+    if max(apart.values()) > allowed or seg_dev > MAX_FLIP:
+        fail(f"lenses: card and CPU disagree on the small Cooke observation: {out}")
+    return out
+
+
+def phase_lenses(T, fused, scenes, bvh):
+    """The two lens demos observed on the card: the Cooke triplet's K6
+    inputs recorded from its warm pass and held against the plain versions
+    (bvh_case), a small Cooke observation against CPU tensors, and both
+    demos at their full image size and bins timed by observe_timed's
+    protocol with exact launches a pass."""
+    from source_tpu_torch.optical import observer as O
+    t0 = time.perf_counter()
+    cpu = card_against_cpu_lens(T, O, scenes)
+    rows, k6 = {}, {}
+    for name, s in LENS_DEMOS.items():
+        t1 = time.perf_counter()
+        cam, rgb = lens_camera(T, O, scenes, name)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec = {}
+        passes, median, spread = lens_passes(
+            T, fused, cam, (lambda: k6_recorder(rec)) if name == "cooke" else None)
+        peak = torch.cuda.max_memory_allocated() - base
+        frame = np.asarray(rgb.xyz_frame.mean)
+        if not np.isfinite(frame).all() or not frame.mean() >= 0.0:
+            fail(f"lenses: {name}: the frame is not finite or its mean is "
+                 f"negative ({frame.mean()})")
+        if name == "cooke":
+            if 0 not in rec or 2 not in rec:
+                fail("lenses: the Cooke pass made fewer than three K6 launches")
+            scene = rec["scene"]
+            sort = len(scene.bvh_leaf_ids) >= 64
+            k6 = dict(
+                bvh_items=len(scene.bvh_leaf_ids),
+                csg_in_kernel=len(scene.kernel_csg_entities),
+                csg_entities=len(scene.csg_entities),
+                camera=bvh_case("cooke_camera", scene, *rec[0], sort, bvh),
+                bounce3=bvh_case("cooke_bounce3", scene, *rec[2], sort, bvh))
+            if len(scene.bvh_leaf_ids) != scene.n_leaves:
+                fail("lenses: a Cooke leaf falls outside the BVH (streamed)")
+        rows[name] = dict(
+            source=s["source"], pixels=list(s["pixels"]), spp=s["spp"],
+            spp_cut_from=s["demo_spp"], bins=s["bins"], max_depth=s["max_depth"],
+            max_iters=s["iters"], tile_size=cam.tile_size, rays_per_s_median=median,
+            rays_per_s_spread=spread, timed_passes=passes, peak_bytes=peak,
+            schedule=getattr(cam, "_auto_schedule_cache", (None, None))[1],
+            frame_mean_xyz=[float(v) for v in frame.reshape(-1, 3).mean(0)],
+            wall_s=time.perf_counter() - t1)
+    emit("lenses", gpu=gpu_line(), card_against_cpu=cpu, analytic_bvh_winner=k6,
+         demos=rows, wall_s=time.perf_counter() - t0)
+    return dict(k6=k6, launches={n: [p["analytic_bvh_winner"]
+                                     for p in r["timed_passes"]]
+                                 for n, r in rows.items()})
+
+
 def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
-                 wave_launches, mesh_rows, mesh_launches, wstep, mods, obs):
+                 wave_launches, mesh_rows, mesh_launches, wstep, mods, obs,
+                 queries, lenses):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -3493,7 +4098,13 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
     ``step_launches``: their launches in one differentiable wavefront step at
     remat_block 1 (phases wstep and modifiers). Every row carries
     ``observer_launches``: its kernel's launches in one observe() pass of
-    each of the suite's five scenes (phase observers), where nonzero."""
+    each of the suite's five scenes (phase observers), where nonzero. The
+    rows of K3, K6 and K7 carry ``query_launches``, their launches on the
+    per-ray entry points (phase queries), and the kernel's time beside its
+    bound at those inputs (``at_ray_sample``, ``at_query_fan``,
+    ``at_query_hits``); K6's row carries ``lens_launches`` (each timed pass
+    of both lens demos) and its time at the Cooke triplet's rays
+    (``at_lens_rays``, phase lenses)."""
     src = "source_tpu_torch/csrc/"
     rows = []
     for name, m, line, source, count in (
@@ -3592,6 +4203,25 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
         row["observer_launches"] = (
             {} if "(" in row["name"] else
             {k: v[base] for k, v in obs.items() if v[base]})
+
+    def at(m):
+        return {k: m[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "max_abs") if k in m}
+    by_name = {row["name"]: row for row in rows}
+    by_name["fused_span_fwd"].update(
+        query_launches=queries["fused_span_fwd"],
+        at_ray_sample=at(queries["k3_row"]))
+    by_name["analytic_bvh_winner"].update(
+        query_launches=queries["analytic_bvh_winner"],
+        at_query_fan=at(queries["k6_row"]),
+        lens_launches=lenses["launches"],
+        at_lens_rays={k: at(lenses["k6"][k]) for k in ("camera", "bounce3")})
+    by_name["mesh_bvh_winner"].update(
+        query_launches=queries["mesh_bvh_winner"],
+        at_query_hits=dict(at(queries["k7_row"]),
+                           max_abs=max(queries["k7_row"][k] for k in
+                                       ("max_abs_dt", "max_abs_du",
+                                        "max_abs_dv"))))
     return {"kernels": rows}
 
 
@@ -3601,7 +4231,7 @@ def main():
                     default="env,kernels,furnace,main,grad_kernels,step,"
                             "krng,fusedprof,bvh_kernels,wavefront,"
                             "mesh_kernels,mesh_furnace,mesh,wstep,modifiers,"
-                            "observers")
+                            "observers,queries,lenses")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3615,6 +4245,7 @@ def main():
     cornell = grad = launches = step_launches = krng = prof = None
     bvh_row = wave = None
     mesh_rows = mesh_launches = wstep = mods = obs = None
+    queries = lenses = None
     mesh_furnace = False
     if "env" in phases:
         phase_env(fused, analytic_bvh,
@@ -3650,16 +4281,21 @@ def main():
         mods = phase_modifiers(T, fused, scenes)
     if "observers" in phases:
         obs = phase_observers(T, fused, scenes)
+    if "queries" in phases:
+        queries = phase_queries(T, fused, scenes, analytic_bvh)
+    if "lenses" in phases:
+        lenses = phase_lenses(T, fused, scenes, analytic_bvh)
     emit("total", seconds=time.perf_counter() - t_start)
     if None in (cornell, grad, launches, step_launches, krng, prof, bvh_row,
                 wave, mesh_rows, mesh_launches, wstep,
-                mods, obs) or not mesh_furnace:
+                mods, obs, queries, lenses) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
                                   krng, prof, bvh_row, wave, mesh_rows,
-                                  mesh_launches, wstep, mods, obs)),
+                                  mesh_launches, wstep, mods, obs, queries,
+                                  lenses)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

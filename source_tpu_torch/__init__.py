@@ -18,8 +18,13 @@ the wavefront route by autograd through ``trace_step`` in checkpoint
 blocks), and with respect to each mesh's vertices, transform and normals.
 The observers and pipelines (``optical.observer``: cameras, sensors, RGB,
 power, radiance and spectral pipelines, samplers) drive ``trace_rays``
-through ``observe()``, as the reference's users do. Entry points take
-``device=`` and default to ``"cuda"``; they raise if no card is there.
+through ``observe()``, as the reference's users do. The per-ray entry
+points answer too: ``World.hit``/``contains`` and ``Primitive.hit``/
+``next_intersection``/``contains`` (``core.Ray``, ``core.Intersection``),
+``optical.Ray.sample`` and ``optical.LoggingRay``, with the spherical
+lenses (``primitive.lens``) and the metal and spectra libraries. Entry
+points take ``device=`` and default to ``"cuda"``; they raise if no card is
+there.
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,8 @@
 
 from .math import *  # noqa: F401,F403
 from .math import __all__ as _math_all
+from .ray import Ray
+from .intersection import Intersection
 from .scenegraph import (
     ChangeSignal, GEOMETRY, MATERIAL, Node, NodeBase, Observer, Primitive,
     World, print_scenegraph,
@@ -9,5 +11,5 @@ from .scenegraph import (
 
 __all__ = list(_math_all) + [
     "ChangeSignal", "GEOMETRY", "MATERIAL", "Node", "NodeBase", "Observer",
-    "Primitive", "World", "print_scenegraph",
+    "Primitive", "World", "print_scenegraph", "Ray", "Intersection",
 ]

@@ -7,6 +7,10 @@ from .transform import (
     rotate_basis, to_cylindrical, from_cylindrical, extract_rotation,
     extract_translation,
 )
+from .units import (
+    kilometre, metre, centimetre, millimetre, micrometre, nanometre,
+    mile, yard, foot, inch, mil, degree, radian, km, cm, mm, um, nm,
+)
 from . import interp, polyroots
 
 __all__ = [
@@ -15,5 +19,8 @@ __all__ = [
     "translate", "rotate_x", "rotate_y", "rotate_z", "rotate_vector",
     "rotate", "rotate_basis", "to_cylindrical", "from_cylindrical",
     "extract_rotation", "extract_translation",
+    "kilometre", "metre", "centimetre", "millimetre", "micrometre",
+    "nanometre", "mile", "yard", "foot", "inch", "mil", "degree", "radian",
+    "km", "cm", "mm", "um", "nm",
     "interp", "polyroots",
 ]

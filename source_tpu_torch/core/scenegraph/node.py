@@ -248,25 +248,79 @@ class Primitive(NodeBase):
 
     # --- direct geometry queries (primitive.pyx:115-223) ---------------------------
 
-    _QUERY_MSG = (
-        "direct geometry queries (Primitive/World hit, contains, "
-        "next_intersection) are not part of this package yet"
-    )
+    def _query_world(self):
+        """Single-primitive World backing hit/contains/next_intersection.
 
-    def hit(self, ray):
-        """Closest intersection of ``ray`` with this primitive alone
-        (primitive.pyx:115-140)."""
-        raise NotImplementedError(self._QUERY_MSG)
+        An instance of this primitive (shared geometry) is parented to a
+        private World at this primitive's root transform, and that world's
+        compiled scene answers the query. Cached on the root transform;
+        geometry mutations clear it via notify_geometry_change."""
+        import numpy as np
+
+        key = np.asarray(self.to_root().to_array(np.float64)).tobytes()
+        cached = getattr(self, "_pq_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from ...optical.material.base import AbsorbingSurface
+
+        world = World()
+        self.instance(parent=world, transform=self.to_root(),
+                      material=AbsorbingSurface())
+        self._pq_cache = (key, world)
+        return world
+
+    def hit(self, ray, device="cuda"):
+        """Closest intersection of ``ray`` with this primitive alone, or
+        None (primitive.pyx:115-140), answered on ``device`` as
+        ``World.hit`` answers. Enables the ``next_intersection`` cursor,
+        which keeps the device."""
+        intersection = self._query_world().hit(ray, device=device)
+        self._next_cursor = None
+        if intersection is None:
+            return None
+        intersection.primitive = self
+        self._next_cursor = (ray, intersection.ray_distance, device)
+        return intersection
 
     def next_intersection(self):
-        """The next intersection along the ray of the last ``hit`` call
-        (primitive.pyx:142-168)."""
-        raise NotImplementedError(self._QUERY_MSG)
+        """The next intersection along the ray supplied to the last
+        ``hit`` call, or None when the ray has fully traversed this
+        primitive (primitive.pyx:142-168). Successive calls enumerate
+        successive surface crossings (used by CSG-style algorithms)."""
+        cursor = getattr(self, "_next_cursor", None)
+        if cursor is None:
+            raise RuntimeError(
+                "next_intersection() may only be called after a successful "
+                "hit() on this primitive."
+            )
+        ray, t_prev, device = cursor
+        # relaunch a copy of the ray just past the previous crossing
+        import numpy as np
 
-    def contains(self, point):
+        from ..math.vector import Point3D, Vector3D
+
+        o = np.asarray([ray.origin.x, ray.origin.y, ray.origin.z], np.float64)
+        d = np.asarray(
+            [ray.direction.x, ray.direction.y, ray.direction.z], np.float64
+        )
+        eps = 1e-4 * max(1.0, abs(t_prev))
+        o2 = o + (t_prev + eps) * d
+        relaunch = ray.copy(origin=Point3D(*o2), direction=Vector3D(*d))
+        intersection = self._query_world().hit(relaunch, device=device)
+        if intersection is None:
+            self._next_cursor = None
+            return None
+        intersection.primitive = self
+        t_total = t_prev + eps + intersection.ray_distance
+        intersection.ray = ray
+        intersection.ray_distance = t_total
+        self._next_cursor = (ray, t_total, device)
+        return intersection
+
+    def contains(self, point, device="cuda"):
         """True when ``point`` lies inside this primitive
         (primitive.pyx:170-180)."""
-        raise NotImplementedError(self._QUERY_MSG)
+        return len(self._query_world().contains(point, device=device)) > 0
 
 
 class Observer(NodeBase):
@@ -287,6 +341,8 @@ class World(NodeBase):
         self._observers = []
         self._scene_dirty = True
         self._material_dirty = True
+        # compiled scene of the hit/contains queries, one per device
+        self._query_scenes = {}
 
     @property
     def primitives(self):
@@ -320,16 +376,118 @@ class World(NodeBase):
             self._material_dirty = True
         elif signal is MATERIAL:
             self._material_dirty = True
+        self._query_scenes = {}
 
     # --- interactive scene queries (core/scenegraph/world.pyx:125-163) -------------
 
-    def hit(self, ray):
-        """Closest intersection of ``ray`` with the scene (world.pyx:125-147)."""
-        raise NotImplementedError(Primitive._QUERY_MSG)
+    def _build_query_scene(self, device="cuda"):
+        """The compiled scene of the hit/contains queries on ``device``,
+        compiled at first use and kept until a GEOMETRY or MATERIAL signal
+        (the reference's lazy accelerator build, world.pyx:170-194). One
+        spectral bin: geometry queries don't touch the spectral tables. The
+        default device is the card; without one it raises."""
+        from ...compiler.scene import SpectralConfig, compile_scene, resolve_device
 
-    def contains(self, point):
-        """List of primitives containing ``point`` (world.pyx:149-163)."""
-        raise NotImplementedError(Primitive._QUERY_MSG)
+        device = resolve_device(device)
+        scene = self._query_scenes.get(device)
+        if scene is None:
+            scene = compile_scene(self, SpectralConfig(375.0, 740.0, 1),
+                                  device=device)
+            self._query_scenes[device] = scene
+        return scene
+
+    def build_accelerator(self, force=False, device="cuda"):
+        """Reference-compatible alias for the lazy scene compile
+        (world.pyx:170)."""
+        if force:
+            self._query_scenes = {}
+        self._build_query_scene(device)
+
+    def hit(self, ray, device="cuda"):
+        """Find the closest intersection of ``ray`` with the scene, or None
+        (world.pyx:125-147). Returns a core ``Intersection`` (a
+        ``MeshIntersection`` for a mesh) whose hit/inside/outside points and
+        normal are in the hit primitive's local space, matching the
+        reference contract. ``intersect_scene`` answers on ``device`` (the
+        analytic-BVH kernel for analytic and CSG entities and the mesh
+        kernel for meshes, on the card); the record comes back to the host
+        in one transfer."""
+        import numpy as np
+        import torch
+
+        from ..intersection import Intersection
+        from ..math.vector import Normal3D, Point3D
+        from ...tracer.intersect import intersect_scene
+
+        scene = self._build_query_scene(device)
+        o = np.asarray(
+            [[ray.origin.x, ray.origin.y, ray.origin.z]], dtype=np.float32
+        )
+        d = np.asarray(
+            [[ray.direction.x, ray.direction.y, ray.direction.z]],
+            dtype=np.float32,
+        )
+        # normalised on the host, in float32 as the reference does
+        n = float(np.linalg.norm(d[0]))
+        if n == 0.0:
+            raise ValueError("Ray direction cannot be a zero-length vector.")
+        rec = intersect_scene(scene, torch.from_numpy(o).to(scene.device),
+                              torch.from_numpy(d / n).to(scene.device),
+                              need_grad=False)
+        # every field of the one-ray record in one float64 row (exact for
+        # the f32, i32 and bool fields), pulled once
+        row = torch.cat([
+            x.reshape(1, -1).to(torch.float64) for x in (
+                rec.hit, rec.t, rec.entity, rec.point, rec.inside_point,
+                rec.outside_point, rec.normal, rec.exiting, rec.tri,
+                rec.bary_u, rec.bary_v)], dim=1)[0].cpu().numpy()
+        if not row[0]:
+            return None
+        t = float(row[1]) / n
+        if t > ray.max_distance:
+            return None
+        prim = self._primitives[int(row[2])]
+        w2p = prim.to_local()
+        p2w = prim.to_root()
+        hit_point = Point3D(*row[3:6]).transform(w2p)
+        inside_point = Point3D(*row[6:9]).transform(w2p)
+        outside_point = Point3D(*row[9:12]).transform(w2p)
+        # world->local normal: inverse-transpose uses the local->world matrix.
+        # Stays the OUTWARD surface normal regardless of `exiting`
+        # (sphere.pyx:183-197 convention).
+        local_normal = Normal3D(*row[12:15]).transform(p2w).normalise()
+        exiting = bool(row[15])
+        if getattr(prim, "is_mesh", False):
+            from ...primitive.mesh.mesh import MeshIntersection
+
+            u = float(row[17])
+            v = float(row[18])
+            return MeshIntersection(
+                ray, t, prim, hit_point, inside_point, outside_point,
+                local_normal, exiting, w2p, p2w,
+                triangle=int(row[16]), u=u, v=v, w=1.0 - u - v,
+            )
+        return Intersection(
+            ray, t, prim, hit_point, inside_point, outside_point,
+            local_normal, exiting, w2p, p2w,
+        )
+
+    def contains(self, point, device="cuda"):
+        """List of primitives containing ``point`` (world.pyx:149-163),
+        answered by ``entity_contains`` on ``device`` (a closed mesh by a +z
+        probe through the mesh kernel on the card)."""
+        import torch
+
+        from ...tracer.intersect import entity_contains
+
+        scene = self._build_query_scene(device)
+        p = torch.tensor([[point.x, point.y, point.z]], dtype=torch.float32,
+                         device=scene.device)
+        inside = entity_contains(scene, p)[0].cpu().tolist()
+        return [
+            self._primitives[e] for e in range(len(self._primitives))
+            if inside[e]
+        ]
 
     def __repr__(self):
         return f"<World: {self.name!r}>"

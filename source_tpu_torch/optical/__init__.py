@@ -9,6 +9,12 @@ from .spectrum import (
     Spectrum, SpectralFunction, InterpolatedSF, ConstantSF,
     NumericallyIntegratedSF, photon_energy,
 )
+from .colour import (
+    ciexyz_x, ciexyz_y, ciexyz_z, resample_ciexyz, spectrum_to_ciexyz,
+    spectra_to_ciexyz, ciexyz_to_srgb, srgb_to_ciexyz, d65_white,
+)
+from .ray import Ray
+from .loggingray import LoggingRay
 
 __all__ = [
     "Vector3D", "Point3D", "Normal3D", "AffineMatrix3D", "translate",
@@ -16,4 +22,8 @@ __all__ = [
     "rotate_basis", "Node", "World",
     "Spectrum", "SpectralFunction", "InterpolatedSF", "ConstantSF",
     "NumericallyIntegratedSF", "photon_energy",
+    "ciexyz_x", "ciexyz_y", "ciexyz_z", "resample_ciexyz",
+    "spectrum_to_ciexyz", "spectra_to_ciexyz", "ciexyz_to_srgb",
+    "srgb_to_ciexyz", "d65_white",
+    "Ray", "LoggingRay",
 ]

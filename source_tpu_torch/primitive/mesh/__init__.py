@@ -1,6 +1,6 @@
 """Triangle meshes: geometry, BVH and the primitive node."""
 
 from .data import MeshData
-from .mesh import Mesh
+from .mesh import Mesh, MeshIntersection
 
-__all__ = ["Mesh", "MeshData"]
+__all__ = ["Mesh", "MeshData", "MeshIntersection"]

@@ -5,20 +5,40 @@ Mesh(Primitive), raysect/primitive/mesh/mesh.pyx:1090-1390): it carries a
 transform and a material and shares its geometry between instances
 (``instance``, :1162). The scene compiler sees ``is_mesh`` and emits a mesh
 entity with its ``MeshTables`` instead of analytic leaves.
-``MeshIntersection`` and the direct ``Primitive.hit`` queries are not part
-of this package yet.
+``MeshIntersection`` is what ``World.hit`` returns for a mesh hit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ...core.intersection import Intersection
 from ...core.math.vector import Point3D
 from ...core.scenegraph.node import Primitive
 from ..shapes import _transform_aabb
 from .data import MeshData
 
-__all__ = ["Mesh"]
+__all__ = ["Mesh", "MeshIntersection"]
+
+
+class MeshIntersection(Intersection):
+    """Intersection specialised for triangle meshes (reference
+    primitive/mesh/mesh.pyx MeshIntersection): adds the winning triangle
+    index and the barycentric coordinates (u, v, w) of the hit so shading
+    code can interpolate per-vertex attributes."""
+
+    def __init__(self, ray, ray_distance, primitive, hit_point, inside_point,
+                 outside_point, normal, exiting, world_to_primitive,
+                 primitive_to_world, triangle=-1, u=0.0, v=0.0, w=0.0):
+        super().__init__(
+            ray, ray_distance, primitive, hit_point, inside_point,
+            outside_point, normal, exiting, world_to_primitive,
+            primitive_to_world,
+        )
+        self.triangle = triangle
+        self.u = u
+        self.v = v
+        self.w = w
 
 
 class Mesh(Primitive):

@@ -17,6 +17,12 @@ benchmarks/bigmesh.py in place of the glass icosphere. ``modifier_world``
 holds every material path that only the wavefront route traces: Blend and
 Add mixes, a Roughen, two user BSDFs (``UserLambert``, ``UserMirror``) and
 an inhomogeneous volume emitter (``glow``) inside a ``VolumeTransform``.
+``cooke_triplet_world`` and ``metal_lens_world`` are the reference's two
+imaging demos through real optics (demos/observers/): lenses of Schott
+glass, absorbing mounts and a null-material aperture for a
+``TargetedCCDArray``. ``hitpoints_world`` and ``logging_lens_world`` are the
+worlds of the per-ray query demos (demos/core/ray_intersection_hitpoints.py,
+demos/optics/logging_trajectories.py).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from .core import Point3D, rotate, rotate_x, translate
+from .core.math.units import mm
 from .core.math.batch import safe_sqrt
 from .core.scenegraph import Node, World
 from .optical import InterpolatedSF
@@ -35,14 +42,16 @@ from .optical.library import d65_white, schott
 from .primitive import Mesh
 from .optical.material import (
     AbsorbingSurface, Add, AnisotropicSurfaceEmitter, Blend, Checkerboard,
-    Conductor, ContinuousBSDF, DiscreteBSDF, InhomogeneousVolumeEmitter,
-    Lambert, NullSurface, NumericalIntegrator, PerfectReflectingSurface,
-    RoughConductor, Roughen, UniformSurfaceEmitter, UniformVolumeEmitter,
-    UnitySurfaceEmitter, VolumeTransform,
+    Conductor, ContinuousBSDF, Dielectric, DiscreteBSDF,
+    InhomogeneousVolumeEmitter, Lambert, NullMaterial, NullSurface,
+    NumericalIntegrator, PerfectReflectingSurface, RoughConductor, Roughen,
+    UniformSurfaceEmitter, UniformVolumeEmitter, UnitySurfaceEmitter,
+    VolumeTransform,
 )
 from .optical.material.base import NSLOTS
 from .primitive import (
-    Box, Cone, Cylinder, Intersect, Parabola, Sphere, Subtract, Torus, Union,
+    BiConcave, BiConvex, Box, Cone, Cylinder, Intersect, Meniscus, Parabola,
+    Sphere, Subtract, Torus, Union,
 )
 
 __all__ = ["cornell_box", "zoo", "furnace", "csg_world", "prism_world",
@@ -50,6 +59,8 @@ __all__ = ["cornell_box", "zoo", "furnace", "csg_world", "prism_world",
            "icosphere", "torus_knot", "mesh_world", "big_mesh_world",
            "cube_mesh", "blob_mesh", "watertight_cases", "MESH_CAMERA",
            "modifier_world", "UserLambert", "UserMirror", "glow",
+           "cooke_triplet_world", "metal_lens_world", "hitpoints_world",
+           "logging_lens_world",
            "pinhole_rays", "camera_rays", "scatter_rays", "field_rays"]
 
 
@@ -667,3 +678,116 @@ def field_rays(n, seed=0):
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def cooke_triplet_world():
+    """The Cornell box imaged through a Cooke triplet
+    (demos/observers/cornell_box_cooke_triplet.py:29-65 on
+    demos/cornell_box.py's glass box): a Meniscus / BiConcave / BiConvex
+    triplet of Schott glass (lens importance sampling off), each lens, its
+    mount and the stop parented to the lens before, an absorbing camera
+    body, and a null-material aperture inside the stop. Returns (world,
+    image_plane, aperture): a ``TargetedCCDArray`` under ``image_plane``,
+    turned by ``rotate(0, 0, 180)``, aims its samples at ``aperture``."""
+    world = cornell_box(glass=True)
+    camera = Node(parent=world, transform=translate(0, 0, -3.8))
+    lenses = Node(parent=camera)
+    l1 = Meniscus(mm(21), mm(4.831), mm(23.713), mm(7331.288),
+                  parent=lenses, transform=translate(0, 0, mm(-4.831)),
+                  material=schott("N-LAK9"))
+    l2 = BiConcave(mm(13), mm(0.975), mm(24.456), mm(21.896), parent=l1,
+                   transform=translate(0, 0, mm(-6.835)),
+                   material=schott("SF5"))
+    l3 = BiConvex(mm(18), mm(3.127), mm(86.759), mm(20.4942), parent=l2,
+                  transform=translate(0, 0, mm(-7.949)),
+                  material=schott("N-LAK9"))
+    image_plane = Node(parent=l3, transform=translate(0, 0, mm(-41.5)))
+    for lens in (l1, l2, l3):
+        lens.material.importance = 0.0
+
+    Subtract(Cylinder(mm(26), mm(80.0), transform=translate(0, 0, mm(-63))),
+             Cylinder(mm(25), mm(79.1), transform=translate(0, 0, mm(-62))),
+             parent=camera, material=AbsorbingSurface())
+    Subtract(Cylinder(mm(25.5), mm(5.0)),
+             Cylinder(mm(21 / 2 + 0.01), mm(5.1),
+                      transform=translate(0, 0, mm(-0.05))),
+             parent=l1, material=AbsorbingSurface())
+    Subtract(Cylinder(mm(25.5), mm(4.0)),
+             Cylinder(mm(13 / 2 + 0.01), mm(4.1),
+                      transform=translate(0, 0, mm(-0.05))),
+             parent=l2, material=AbsorbingSurface())
+    Subtract(Cylinder(mm(25.5), mm(1.0)),
+             Cylinder(mm(12 / 2 + 0.01), mm(1.1),
+                      transform=translate(0, 0, mm(-0.05))),
+             parent=l2, transform=translate(0, 0, mm(-2)),
+             material=AbsorbingSurface())
+    aperture = Cylinder(mm(12 / 2), mm(0.5), parent=l2,
+                        transform=translate(0, 0, mm(-1.95)),
+                        material=NullMaterial())
+    return world, image_plane, aperture
+
+
+def metal_lens_world():
+    """Six measured-n/k metal spheres on a white floor under a D65
+    cylinder light, seen through a BiConvex N-BK7 lens in an absorbing
+    camera body with a null-material aperture
+    (demos/observers/metal_with_lens.py:31-57). Returns (world, camera,
+    aperture): a ``TargetedCCDArray`` under ``camera`` aims at
+    ``aperture``."""
+    from .optical.library import (
+        Aluminium, Beryllium, Copper, Gold, Silver, Titanium,
+    )
+    world = World()
+    for (tx, tz), metal in [((1.2, 0.6), Gold), ((0.6, -0.6), Silver),
+                            ((0, 0.6), Copper), ((-0.6, -0.6), Titanium),
+                            ((-1.2, 0.6), Aluminium), ((0, -1.8), Beryllium)]:
+        Sphere(0.5, parent=world, transform=translate(tx, 0.5001, tz),
+               material=metal())
+    Box(Point3D(-100, -0.1, -100), Point3D(100, 0, 100), parent=world,
+        material=Lambert(ConstantSF(1.0)))
+    Cylinder(3.0, 8.0, parent=world,
+             transform=translate(4, 8, 0) * rotate(90, 0, 0),
+             material=UniformSurfaceEmitter(d65_white, 1.0))
+
+    camera = Node(parent=world,
+                  transform=translate(0, 4, -3.5) * rotate(0, -48, 180))
+    BiConvex(0.0508, 0.0144, 0.0593, 0.0593, parent=camera,
+             transform=translate(0, 0, 0.0536), material=schott("N-BK7"))
+    Subtract(
+        Subtract(Cylinder(0.0260, 0.07),
+                 Cylinder(0.0255, 0.06, transform=translate(0, 0, 0.005))),
+        Cylinder(0.015, 0.007, transform=translate(0, 0, 0.064)),
+        parent=camera, transform=translate(0, 0, -0.01),
+        material=AbsorbingSurface(),
+    )
+    aperture = Cylinder(0.016, 0.0009, parent=camera,
+                        transform=translate(0, 0, 0.064),
+                        material=NullMaterial())
+    return world, camera, aperture
+
+
+def hitpoints_world():
+    """A box with a sphere cut out of it, 2 m down +z
+    (demos/core/ray_intersection_hitpoints.py:22-27). Returns (world,
+    solid)."""
+    world = World()
+    solid = Subtract(
+        Box(Point3D(-0.5, -0.5, -0.5), Point3D(0.5, 0.5, 0.5)),
+        Sphere(0.6),
+        parent=world, transform=translate(0, 0, 2),
+        material=AbsorbingSurface(),
+    )
+    return world, solid
+
+
+def logging_lens_world():
+    """An f~51 mm BiConvex lens of index 1.5 (transmission only) and an
+    absorbing screen past its focal plane
+    (demos/optics/logging_trajectories.py:20-26)."""
+    world = World()
+    BiConvex(0.02, 0.006, 0.05, 0.05, parent=world,
+             material=Dielectric(ConstantSF(1.5), ConstantSF(1.0),
+                                 transmission_only=True))
+    Box(Point3D(-0.05, -0.05, 0.062), Point3D(0.05, 0.05, 0.063),
+        parent=world, material=AbsorbingSurface())
+    return world

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -58,9 +59,11 @@ from . import fused
 from .intersect import HitRecord, intersect_scene, mesh_contains
 
 __all__ = ["RayConfig", "RayState", "init_rays", "trace_step", "trace_rays",
-           "trace_rays_diff", "alive_profile", "schedule_from_profile"]
+           "trace_rays_diff", "alive_profile", "schedule_from_profile",
+           "trace_rays_logged", "reconstruct_trajectories"]
 
 _PI = 3.141592653589793
+_INF = float("inf")
 _2PI = 2.0 * _PI
 
 
@@ -1059,3 +1062,80 @@ def schedule_from_profile(counts, n_lanes, headroom=4, max_divisor=16,
             cum_div = next_div
             steps_in_stage = 0
     return tuple(schedule)
+
+
+def trace_rays_logged(scene: CompiledScene, cfg: RayConfig, state: RayState,
+                      generator=None, u_all=None):
+    """Path-logging variant (reference LoggingRay, optical/loggingray.pyx:45):
+    ``cfg.max_iters`` bounces (no early exit, no compaction) that record, per
+    bounce, the intersection record of every ray -- hit point, entity and
+    material id, world normal, exiting flag, path throughput at the segment
+    start and the segment length (the reference stores per-vertex
+    Intersection objects, loggingray.pyx:45-202). Each bounce calls
+    ``intersect_scene`` for the log and then ``trace_step``, as the
+    reference does, so a scene with the leaf BVH launches the analytic-BVH
+    kernel twice a bounce.
+
+    The bounce uniforms come from ``generator``, one [N, n_uniforms] draw a
+    bounce, or from ``u_all(i, 1, n_lanes)`` as in ``alive_profile``.
+    Returns (final_state, log), the log a dict of [max_iters, N, ...]
+    tensors left on the state's device. ``reconstruct_trajectories`` turns
+    it into per-ray vertex lists on the host."""
+    _check_device(scene, state)
+    n_u = _n_uniforms(scene)
+    n = state.origin.shape[0]
+    entries = []
+    st = state
+    with torch.no_grad():
+        for i in range(cfg.max_iters):
+            rec = intersect_scene(scene, st.origin, st.direction,
+                                  need_grad=False)
+            if u_all is not None:
+                u = u_all(i, 1, n)[0]
+            else:
+                u = torch.rand((n, n_u), generator=generator,
+                               dtype=torch.float32, device=st.origin.device)
+            nxt = trace_step(scene, cfg, st, u, differentiable=False)
+            valid = st.alive & rec.hit
+            mat_id = vmath.select_rows(scene.entity_material,
+                                       torch.clamp(rec.entity, min=0))
+            entries.append({
+                "origin": st.origin,
+                "hit_point": rec.point,
+                "entity": torch.where(valid, rec.entity, -1),
+                "material": torch.where(valid, mat_id, -1),
+                "normal": rec.normal,
+                "exiting": valid & rec.exiting,
+                "throughput": st.throughput,
+                "alive": st.alive,
+                "t": torch.where(rec.hit, rec.t, _INF),
+            })
+            st = nxt
+    log = {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+    return st, log
+
+
+def reconstruct_trajectories(log):
+    """Host helper: turn a ``trace_rays_logged`` SoA log into per-ray
+    trajectories (the reference's LoggingRay.path_vertices list of
+    Intersection objects, loggingray.pyx:45-202). The log's tensors come
+    to the host once each.
+
+    Returns a list of N trajectories; each is a list of per-vertex dicts
+    with keys origin/hit_point/entity/material/normal/exiting/throughput/
+    alive/t, truncated at the first dead bounce."""
+    arrays = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+              for k, v in log.items()}
+    alive = arrays["alive"]  # [D, N]
+    D, N = alive.shape
+    out = []
+    for n in range(N):
+        path = []
+        for i in range(D):
+            if not alive[i, n]:
+                break
+            if not np.isfinite(arrays["t"][i, n]):
+                break
+            path.append({k: arrays[k][i, n] for k in arrays})
+        out.append(path)
+    return out

@@ -143,17 +143,18 @@ def test_spec_descriptor_layout(pairs):
 
 
 def test_unported_parts_raise():
-    """What the port does not cover yet says so instead of going wrong: the
-    direct primitive queries raise, each naming what is missing, and so does
-    a user BSDF that lacks the contract's methods. CSG, meshes and the
-    modifier paths compile and trace on the wavefront route, forward and
-    differentiable (a mesh scene among the cases)."""
+    """What the port does not cover yet says so instead of going wrong: a
+    user BSDF that lacks the contract's methods raises, naming what is
+    missing. The direct queries, which raised here before they were ported,
+    answer (tests/test_torch_query.py holds them to the reference). CSG,
+    meshes and the modifier paths compile and trace on the wavefront route,
+    forward and differentiable (a mesh scene among the cases)."""
     import dataclasses
+    from source_tpu_torch.core import Ray
     world = scenes.furnace()
-    with pytest.raises(NotImplementedError):
-        world.hit(None)
-    with pytest.raises(NotImplementedError):
-        world.primitives[0].contains(T.Point3D(0, 0, 0))
+    ix = world.hit(Ray(T.Point3D(0, 0, 0), T.Vector3D(0, 0, 1)), device="cpu")
+    assert ix.exiting and ix.primitive is world.primitives[0]
+    assert world.primitives[0].contains(T.Point3D(0, 0, 0), device="cpu")
     from source_tpu_torch.optical.material import Light, Lambert
     from source_tpu_torch.optical.material.base import ContinuousBSDF
     with pytest.raises(NotImplementedError):
@@ -186,13 +187,15 @@ def test_unported_parts_raise():
                             device="cpu")
         assert torch.equal(st.radiance, torch.ones(4, B)), change
     # meshes compile and trace, forward and differentiable; the direct
-    # primitive queries on a mesh do not exist yet
-    from source_tpu_torch.primitive import Mesh
+    # primitive queries on a mesh answer with a MeshIntersection
+    from source_tpu_torch.primitive import Mesh, MeshIntersection
     mesh_world = T.World()
     mesh = Mesh(*scenes.cube_mesh(), closed=True, parent=mesh_world,
                 material=Lambert())
-    with pytest.raises(NotImplementedError):
-        mesh.hit(None)
+    ix = mesh.hit(Ray(T.Point3D(0.1, 0.2, -5), T.Vector3D(0, 0, 1)),
+                  device="cpu")
+    assert isinstance(ix, MeshIntersection) and ix.primitive is mesh
+    assert ix.triangle >= 0 and not ix.exiting
     ms = T.compile_scene(mesh_world, T.SpectralConfig(*SPECTRAL), device="cpu")
     st = T.render_batch(ms, T.RayConfig(max_iters=2), o, d, differentiable=True,
                         device="cpu")
