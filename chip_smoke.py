@@ -43,7 +43,19 @@ launches, the kernels they reach held to their plain versions at their
 inputs; and the two lens demos (phase ``lenses``): the Cooke triplet's
 analytic-BVH inputs recorded from an ``observe()`` pass and held to the
 plain versions, a small observation against CPU tensors, and both demos at
-their image sizes and bins by the suite's protocol. Every
+their image sizes and bins by the suite's protocol; the mesh file IO
+(phase ``meshio``): the bunny demo's 20 480-triangle stand-in through every
+writer and reader (OBJ by the native tokenizer and by the Python reader,
+STL, PLY, VTK, RSM), the bunny demo (demos/materials/bunny.py: the glass
+mesh read back from PLY in a CSG glass light box) observed at 512x512, 5
+spectral rays, 15 bins, by the suite's protocol (a warm pass, two timed
+passes) with exact launches, K6 and K7 at its recorded rays against their
+plain versions, a small observation against CPU tensors and the KDTree
+facade's queries; and the function framework (phase ``functions``): the
+tetrahedral-emission demo's ``Discrete3DMesh`` at 1 048 576 points and the
+array interpolators against CPU tensors, the samplers' normalisation, and
+the demo (demos/materials/tetrahedra_mesh_emission.py) observed at
+512x512 with its field's memory at the observed batch. Every
 phase prints one JSON line; any failure exits non-zero. Without a CUDA
 device the script exits 2 and prints no result.
 ``--phases krng,fusedprof`` runs a subset while developing (the last line is
@@ -3926,8 +3938,9 @@ def lens_camera(T, O, scenes, name, device="cuda", pixels=None):
     return cam, pipes[0]
 
 
-def lens_passes(T, fused, cam, record=None):
-    """One warm pass, then OBS_REPEATS timed passes (``accumulate=False``),
+def lens_passes(T, fused, cam, record=None, repeats=OBS_REPEATS,
+                where="lenses"):
+    """One warm pass, then ``repeats`` timed passes (``accumulate=False``),
     each with its launches counted from 0 and held exactly to its route's:
     one K6 a traced bounce (the schedule's profile included), no fused
     span; ``record``, if given, wraps the warm pass. Returns the timed
@@ -3938,7 +3951,7 @@ def lens_passes(T, fused, cam, record=None):
     calls = CallCount((W, "trace_step"), (fused, "fused_forward_span"))
     passes = []
     try:
-        for p in range(1 + OBS_REPEATS):
+        for p in range(1 + repeats):
             if p:
                 for pipe in cam.pipelines:
                     if hasattr(pipe, "accumulate"):
@@ -3950,48 +3963,80 @@ def lens_passes(T, fused, cam, record=None):
                                   calls.n["fused_forward_span"])
             if (launches != want or calls.n["fused_forward_span"]
                     or not launches["analytic_bvh_winner"]):
-                fail(f"lenses: want exactly the wavefront route's launches "
+                fail(f"{where}: want exactly the wavefront route's launches "
                      f"{want} (calls {calls.n}), got {launches}")
             if p:
                 passes.append(dict(
                     rays_per_s=cam.rays_per_second, render_time_s=cam.render_time,
                     segments=cam._stats_rays, overflow=cam.compaction_overflow,
                     traced_bounces=calls.n["trace_step"],
-                    analytic_bvh_winner=launches["analytic_bvh_winner"]))
+                    analytic_bvh_winner=launches["analytic_bvh_winner"],
+                    mesh_bvh_winner=launches["mesh_bvh_winner"]))
     finally:
         calls.restore()
-    rates = sorted(x["rays_per_s"] for x in passes)
-    return passes, rates[len(rates) // 2], (rates[-1] - rates[0]) / rates[len(rates) // 2]
+    rates = [x["rays_per_s"] for x in passes]
+    median = float(np.median(rates))
+    return passes, median, (max(rates) - min(rates)) / median
 
 
 @contextlib.contextmanager
-def k6_recorder(out):
-    """Records, in the first trace of a pass, the scene and the inputs of
-    the analytic-BVH kernel's first and third launches (the camera rays and
-    the third bounce's rays, parked as trace_step parks them)."""
+def kernel_recorder(out, busiest=False):
+    """Records, from the first trace of a pass that reaches a third bounce
+    (with ``busiest``: from the trace whose camera rays hit the scene's mesh
+    most often, or the leaf BVH's items in a scene without a mesh), the
+    scene and the inputs of the analytic-BVH kernel's first and third
+    launches (``out[0]``, ``out[2]``: the camera rays and the third bounce's
+    rays, parked as trace_step parks them) and, for a scene with a mesh, of
+    the mesh kernel's (``out["mesh", 0]``, ``out["mesh", 2]``: the tables
+    and the local-frame rays of its one mesh); ``out["hits"]``, the camera
+    rays' hits. A trace whose rays all leave the scene (a tile of sky) ends
+    before its third bounce."""
     from source_tpu_torch.optical.observer import base as B
     from source_tpu_torch.tracer import intersect as I
-    real_k6, real_trace = I.analytic_bvh_winner, B.trace_rays
-    state = dict(traces=0, k6=0)
+    from source_tpu_torch.tracer import meshtrace as MT
+    real_k6, real_k7, real_trace = (I.analytic_bvh_winner, MT.mesh_bvh_winner,
+                                    B.trace_rays)
+    buf = {}
 
     def trace(scene, *a, **kw):
-        state["traces"] += 1
-        if state["traces"] == 1:
-            out["scene"] = scene
-        return real_trace(scene, *a, **kw)
+        buf.clear()
+        buf.update(k6=0, k7=0, on=busiest or not out)
+        res = real_trace(scene, *a, **kw)
+        need = [0, 2] + ([("mesh", 0), ("mesh", 2)] if scene.meshes else [])
+        hits = buf.get("hits_mesh" if scene.meshes else "hits", 0)
+        if (buf["on"] and all(k in buf for k in need)
+                and hits > out.get("hits", -1)):
+            out.update({k: buf[k] for k in need}, scene=scene, hits=hits)
+        buf["on"] = False
+        return res
 
     def k6(tables, meta, origin, direction, t_min, **kw):
-        if state["traces"] == 1:
-            if state["k6"] in (0, 2):
-                out[state["k6"]] = (origin.clone(), direction.clone())
-            state["k6"] += 1
-        return real_k6(tables, meta, origin, direction, t_min, **kw)
+        res = real_k6(tables, meta, origin, direction, t_min, **kw)
+        if buf.get("on"):
+            if buf["k6"] in (0, 2):
+                buf[buf["k6"]] = (origin.clone(), direction.clone())
+            if buf["k6"] == 0:
+                buf["hits"] = int((res["leaf"] >= 0).sum())
+            buf["k6"] += 1
+        return res
 
-    B.trace_rays, I.analytic_bvh_winner = trace, k6
+    def k7(mesh, origin, direction, t_min, *a, **kw):
+        res = real_k7(mesh, origin, direction, t_min, *a, **kw)
+        if buf.get("on"):
+            if buf["k7"] in (0, 2):
+                buf["mesh", buf["k7"]] = (mesh, origin.clone(),
+                                          direction.clone(), t_min.clone())
+            if buf["k7"] == 0:
+                buf["hits_mesh"] = int((res["tri"] >= 0).sum())
+            buf["k7"] += 1
+        return res
+
+    B.trace_rays, I.analytic_bvh_winner, MT.mesh_bvh_winner = trace, k6, k7
     try:
         yield
     finally:
-        B.trace_rays, I.analytic_bvh_winner = real_trace, real_k6
+        B.trace_rays, I.analytic_bvh_winner, MT.mesh_bvh_winner = (
+            real_trace, real_k6, real_k7)
 
 
 def card_against_cpu_lens(T, O, scenes):
@@ -4050,15 +4095,15 @@ def phase_lenses(T, fused, scenes, bvh):
         base = torch.cuda.memory_allocated()
         rec = {}
         passes, median, spread = lens_passes(
-            T, fused, cam, (lambda: k6_recorder(rec)) if name == "cooke" else None)
+            T, fused, cam, (lambda: kernel_recorder(rec)) if name == "cooke" else None)
         peak = torch.cuda.max_memory_allocated() - base
         frame = np.asarray(rgb.xyz_frame.mean)
         if not np.isfinite(frame).all() or not frame.mean() >= 0.0:
             fail(f"lenses: {name}: the frame is not finite or its mean is "
                  f"negative ({frame.mean()})")
         if name == "cooke":
-            if 0 not in rec or 2 not in rec:
-                fail("lenses: the Cooke pass made fewer than three K6 launches")
+            if "scene" not in rec:
+                fail("lenses: no Cooke trace reached a third bounce")
             scene = rec["scene"]
             sort = len(scene.bvh_leaf_ids) >= 64
             k6 = dict(
@@ -4084,9 +4129,502 @@ def phase_lenses(T, fused, scenes, bvh):
                                  for n, r in rows.items()})
 
 
+# --- mesh file IO and the bunny demo (phase meshio) ---------------------------
+
+# demos/materials/bunny.py:103-112 on the demo's stand-in for the Stanford scan
+# (the 20 480-triangle displaced icosphere(5), written to PLY and read back):
+# the image, spectral rays, bins, depth, iterations and extinction of the
+# demo, tiles of LENS_TILE pixels; the samples cut from 250 to BUNNY["spp"].
+# A pass is 80 traces of up to 64 host-paced bounces (3 860 traced bounces),
+# 41-47 s at 1 and at 4 samples alike: fewer samples do not shorten it
+BUNNY = dict(source="demos/materials/bunny.py:103-112", pixels=(512, 512),
+             spp=4, demo_spp=250, spectral_rays=5, bins=15, max_depth=500,
+             iters=64, extinction=0.01, subdivisions=5)
+OBS_TIMED = 2  # timed passes a new demo (after a warm pass)
+# every writer and reader: (format, writer keywords, reader)
+MESHIO_FORMATS = {
+    "obj": ("obj", {}, "native"), "obj_python": ("obj", {}, "python"),
+    "stl_ascii": ("stl", {"mode": "ascii"}, None),
+    "stl_binary": ("stl", {"mode": "binary"}, None),
+    "ply_ascii": ("ply", {"mode": "ascii"}, None),
+    "ply_binary": ("ply", {"mode": "binary"}, None),
+    "vtk": ("vtk", {}, None), "rsm": ("rsm", {}, None)}
+STL_WELD_TOL = 6e-7   # STL welds its soup rounded to 6 decimals (5e-7 + f32)
+BVH_FIELDS = ("node_lo", "node_hi", "node_skip", "node_first", "node_count",
+              "order")
+
+
+def in_file_order(data):
+    """A MeshData's triangle soup [T, 3, 3] in the order of its input."""
+    return data.vertices[data.triangles[np.argsort(data.bvh.order)]]
+
+
+def meshio_round_trips(T, scenes):
+    """The bunny stand-in through every writer and reader: the mesh read
+    back against the mesh built from the written arrays, vertices,
+    triangles and the BVH node for node equal (STL: the soup within its
+    weld's rounding, the BVH that of the welded geometry);
+    the OBJ file through the native tokenizer, which must have been built."""
+    import tempfile
+    from source_tpu_torch.primitive import Mesh
+    from source_tpu_torch.primitive.mesh import io
+    v, f = scenes.bunny_mesh(BUNNY["subdivisions"])
+    mesh = Mesh(v, f)
+    direct = Mesh(mesh.data.vertices, mesh.data.triangles).data
+    t0 = time.perf_counter()
+    native = io._load_meshio()
+    build_s = time.perf_counter() - t0
+    if native is None:
+        fail("meshio: the native OBJ tokenizer (csrc/meshio.cpp) did not build")
+    out = dict(triangles=direct.n_triangles, vertices=direct.n_vertices,
+               bvh_nodes=direct.bvh.n_nodes, meshio_build_s=build_s, formats={})
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (fmt, kw, reader) in MESHIO_FORMATS.items():
+            path = os.path.join(tmp, f"bunny_{name}.{fmt}")
+            t0 = time.perf_counter()
+            getattr(io, f"export_{fmt}")(mesh, path, **kw)
+            t1 = time.perf_counter()
+            if reader == "python":
+                back = io._import_obj_python(path)
+            elif reader == "native":
+                back = io._import_obj_native(path, 1.0)
+                if back is None:
+                    fail("meshio: the native OBJ reader was not taken")
+            else:
+                back = getattr(io, f"import_{fmt}")(path)
+            t2 = time.perf_counter()
+            b = back.data
+            # the triangle soup in the order the file lists the triangles
+            # (a BVH build permutes them into leaf order)
+            soup = np.abs(in_file_order(b) - in_file_order(direct)).max()
+            if fmt == "stl":
+                # STL welds its soup at 6 decimals: the geometry within that
+                # rounding, the BVH that of the welded geometry
+                ok = soup <= STL_WELD_TOL
+                ref = Mesh(b.vertices, b.triangles[np.argsort(b.bvh.order)]).data
+            else:
+                ok = (soup == 0.0 and np.array_equal(b.vertices, direct.vertices)
+                      and np.array_equal(b.triangles, direct.triangles))
+                ref = direct
+            for k in BVH_FIELDS:
+                ok &= np.array_equal(getattr(b.bvh, k), getattr(ref.bvh, k))
+            row = dict(bytes=os.path.getsize(path), write_s=t1 - t0,
+                       read_s=t2 - t1, max_abs_vertex=float(soup))
+            if not ok:
+                fail(f"meshio: {name} does not read back the bunny: {row}")
+            out["formats"][name] = row
+    return out
+
+
+def demo_pinhole(T, O, setting, pixels, world, rgb, device):
+    """A PinholeCamera placed as ``setting`` (``scenes.BUNNY_CAMERA`` or
+    ``scenes.TET_CAMERA``: fov, position, rotation) says."""
+    return O.PinholeCamera(
+        pixels, fov=setting["fov"], parent=world, pipelines=[rgb],
+        transform=T.translate(*setting["position"])
+        * T.rotate(*setting.get("rotation", (0.0, 0.0, 0.0))),
+        device=device)
+
+
+def bunny_camera(T, O, scenes, world=None, device="cuda", pixels=None):
+    """The demo's PinholeCamera and RGB pipeline on the port's world."""
+    s = BUNNY
+    rgb = O.RGBPipeline2D(display_unsaturated_fraction=0.96)
+    cam = demo_pinhole(T, O, scenes.BUNNY_CAMERA, pixels or s["pixels"],
+                       world or scenes.bunny_world(), rgb, device)
+    cam.spectral_rays = s["spectral_rays"]
+    cam.spectral_bins = s["bins"]
+    cam.pixel_samples = s["spp"]
+    cam.ray_max_depth = s["max_depth"]
+    cam.max_wavefront_iters = s["iters"]
+    cam.ray_extinction_prob = s["extinction"]
+    cam.tile_size = LENS_TILE
+    cam.quiet = True
+    return cam, rgb
+
+
+def small_against_cpu(where, make, pixels, spp, iters, n_uniforms=10):
+    """A small observation (``make(device)`` -> (camera, pipeline)) with the
+    same injected streams on the card and on CPU tensors: frames within
+    phase observers' tolerances (atol relative to the CPU frame's largest
+    entry) on all but MAX_FLIP of the lanes' pixels, segments within that
+    share."""
+    frames, segs = {}, {}
+    for device in ("cuda", "cpu"):
+        cam, rgb = make(device)
+        cam.pixel_samples = spp
+        cam.max_wavefront_iters = iters
+        cam.tile_size = 512
+        cam.compact_schedule = ((4, 2),)
+        cam.quiet = True
+        cam.observe(seed=5, **injected_streams(n_uniforms))
+        frames[device] = rgb.xyz_frame
+        segs[device] = cam._stats_rays
+    n_pix = int(np.prod(pixels))
+    lanes = n_pix * spp
+    allowed = max(1, int(MAX_FLIP * lanes))
+    apart = {}
+    for f in ("mean", "variance"):
+        x = np.asarray(getattr(frames["cuda"], f)).reshape(n_pix, -1)
+        y = np.asarray(getattr(frames["cpu"], f)).reshape(n_pix, -1)
+        if not np.isfinite(x).all() or not np.abs(y).max() > 0:
+            fail(f"{where}: the small frame ({f}) is not finite or zero")
+        apart[f] = int((~np.isclose(
+            x, y, rtol=OBS_FRAME_RTOL * (10 if f == "variance" else 1),
+            atol=OBS_FRAME_ATOL * np.abs(y).max()).all(-1)).sum())
+    seg_dev = abs(segs["cuda"] - segs["cpu"]) / max(segs["cpu"], 1)
+    out = dict(pixels=n_pix, spp=spp, lanes=lanes, allowed_pixels=allowed,
+               pixels_apart=apart, segments=segs, segments_rel_dev=seg_dev)
+    if max(apart.values()) > allowed or seg_dev > MAX_FLIP:
+        fail(f"{where}: card and CPU disagree on the small observation: {out}")
+    return out
+
+
+def observed_demo(T, fused, cam, rgb, where, record):
+    """observe() by the suite's protocol (a warm pass, recorded by
+    ``record``, then OBS_TIMED timed passes) with exact launches a pass:
+    figures of the timed passes, peak device memory (from the last reset
+    of the peak, which a recorder may make inside the warm pass), the
+    frame's mean."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    passes, median, spread = lens_passes(T, fused, cam, record, OBS_TIMED, where)
+    peak = torch.cuda.max_memory_allocated() - base
+    frame = np.asarray(rgb.xyz_frame.mean)
+    if not np.isfinite(frame).all() or not frame.mean() >= 0.0:
+        fail(f"{where}: the frame is not finite or its mean is negative "
+             f"({frame.mean()})")
+    return dict(rays_per_s_median=median, rays_per_s_spread=spread,
+                timed_passes=passes, peak_bytes=peak,
+                schedule=getattr(cam, "_auto_schedule_cache", (None, None))[1],
+                frame_mean_xyz=[float(v) for v in frame.reshape(-1, 3).mean(0)],
+                wall_s=time.perf_counter() - t0)
+
+
+def recorded_kernels(where, rec, bvh, mesh_too):
+    """K6 (and K7) at the recorded camera and third-bounce rays, each held
+    against its plain versions (bvh_case, mesh_case) with its time and
+    bound."""
+    from source_tpu_torch.tracer import mesh_bvh as mb
+    from source_tpu_torch.tracer import meshtrace as mt
+    scene = rec.get("scene")
+    if scene is None:
+        fail(f"{where}: no trace of the warm pass reached a third bounce")
+    sort = len(scene.bvh_leaf_ids) >= 64
+    out = dict(camera_hits=rec["hits"], k6=dict(bvh_items=len(scene.bvh_leaf_ids),
+                       csg_in_kernel=len(scene.kernel_csg_entities),
+                       camera=bvh_case(f"{where}_camera", scene, *rec[0], sort, bvh),
+                       bounce3=bvh_case(f"{where}_bounce3", scene, *rec[2], sort,
+                                        bvh)))
+    if mesh_too:
+        out["k7"] = {k: mesh_case(f"{where}_{k}", *rec["mesh", i], mb, mt)
+                     for k, i in (("camera", 0), ("bounce3", 2))}
+    return out
+
+
+def kdtree_fan(T, fused, world):
+    """accel.KDTree().build(world), then hit on a 256-ray fan at the mesh:
+    equal to World.hit on every ray, one K6 and one K7 launch a query."""
+    from source_tpu_torch import accel
+    from source_tpu_torch.core import Ray
+    rng = np.random.default_rng(47)
+    o, d = query_fan(QUERY_FAN, (0.0, 0.055, 0.0), 0.06, 0.4, rng)
+    kd = accel.KDTree()
+    kd.build(world)
+    rays = [Ray(T.Point3D(*a), T.Vector3D(*b)) for a, b in zip(o, d)]
+    t0 = time.perf_counter()
+    got, launches = counted(fused, lambda: [hit_fields(kd.hit(r), world.primitives)
+                                            for r in rays])
+    wall = time.perf_counter() - t0
+    want = [hit_fields(world.hit(r), world.primitives) for r in rays]
+    apart = [i for i, (a, b) in enumerate(zip(got, want))
+             if (a is None) != (b is None) or (a is not None and (
+                 a["primitive"] != b["primitive"]
+                 or a.get("triangle") != b.get("triangle")
+                 or not np.array_equal(a["vals"], b["vals"])))]
+    on_mesh = sum(1 for h in got if h is not None and h.get("triangle", -1) >= 0)
+    want_only(launches, "KDTree fan", analytic_bvh_winner=QUERY_FAN,
+              mesh_bvh_winner=QUERY_FAN)
+    if apart or not on_mesh:
+        fail(f"meshio: KDTree.hit differs from World.hit on {len(apart)} of "
+             f"{QUERY_FAN} rays ({on_mesh} mesh hits)")
+    return dict(queries=QUERY_FAN, mesh_hits=on_mesh, ms_per_query=wall * 1e3 /
+                QUERY_FAN, launches=dict(analytic_bvh_winner=QUERY_FAN,
+                                         mesh_bvh_winner=QUERY_FAN))
+
+
+def phase_meshio(T, fused, scenes, bvh):
+    """Mesh file IO and the bunny demo on the card: the stand-in's round
+    trips, the demo observed at 512x512 by the suite's protocol with exact
+    launches, K6 and K7 at its recorded rays against their plain versions,
+    a small observation against CPU tensors, and the KDTree facade."""
+    from source_tpu_torch.optical import observer as O
+    t0 = time.perf_counter()
+    trips = meshio_round_trips(T, scenes)
+    t1 = time.perf_counter()
+    world = scenes.bunny_world()
+    world_s = time.perf_counter() - t1
+    small_world = scenes.bunny_world()
+    cpu = small_against_cpu(
+        "meshio", lambda dev: bunny_camera(T, O, scenes, small_world, dev,
+                                           (32, 32)),
+        (32, 32), 2, 8)
+    cam, rgb = bunny_camera(T, O, scenes, world)
+    rec = {}
+    demo = observed_demo(T, fused, cam, rgb, "meshio",
+                         lambda: kernel_recorder(rec, busiest=True))
+    kernels = recorded_kernels("bunny", rec, bvh, mesh_too=True)
+    fan = kdtree_fan(T, fused, world)
+    s = BUNNY
+    emit("meshio", gpu=gpu_line(), round_trips=trips, card_against_cpu=cpu,
+         bunny=dict(source=s["source"], pixels=list(s["pixels"]), spp=s["spp"],
+                    spp_cut_from=s["demo_spp"], spectral_rays=s["spectral_rays"],
+                    bins=s["bins"], max_depth=s["max_depth"], max_iters=s["iters"],
+                    tile_size=LENS_TILE, triangles=trips["triangles"],
+                    world_build_s=world_s, **demo),
+         kernels=kernels, kdtree=fan, wall_s=time.perf_counter() - t0)
+    return dict(kernels=kernels, fan=fan,
+                launches={k: [p[k] for p in demo["timed_passes"]]
+                          for k in ("analytic_bvh_winner", "mesh_bvh_winner")})
+
+
+# --- the function framework and the tetrahedral-emission demo (phase functions)
+
+# demos/materials/tetrahedra_mesh_emission.py:100-106: 512x512, 4 bins,
+# depth 32, the march at 24 samples over 320 tetrahedra; the samples cut
+# from 200 to TET["spp"]; tiles of LENS_TILE pixels
+TET = dict(source="demos/materials/tetrahedra_mesh_emission.py:100-106",
+           pixels=(512, 512), spp=4, demo_spp=200, bins=4, max_depth=32,
+           subdivisions=2)
+N_FIELD_POINTS = 1 << 20
+FIELD_PEAK_LIMIT = 4e9      # bytes of one Discrete3DMesh call at the observed batch
+FACE_TOL = 1e-6             # tet ids may differ only this near a face
+INTERP_RTOL = 1e-6          # interpolators, card against CPU
+N_INTERP = 65536
+
+
+def tet_field(scenes, device=None):
+    from source_tpu_torch.core.math.function import Discrete3DMesh
+    verts, tets = scenes.icosphere_tets(TET["subdivisions"])
+    data = 1.0 + 4.0 * np.clip(verts[tets].mean(axis=1)[:, 1] + 0.5, 0, 1)
+    return verts, tets, Discrete3DMesh(verts, tets, data, limit=False,
+                                       device=device)
+
+
+def near_a_face(verts, tets, ids, pts):
+    """Float64 distance (in barycentric terms, scaled by the tet's size) of
+    each point to the nearest face of the tetrahedron ``ids`` names."""
+    p = verts[tets[ids]]  # [n, 4, 3]
+    m = np.stack([p[:, 0] - p[:, 3], p[:, 1] - p[:, 3], p[:, 2] - p[:, 3]], -1)
+    lam = np.linalg.solve(m, (pts - p[:, 3])[..., None])[..., 0]
+    lam = np.concatenate([lam, 1.0 - lam.sum(-1, keepdims=True)], -1)
+    size = np.linalg.norm(p - p.mean(1, keepdims=True), axis=-1).max(-1)
+    return np.abs(lam).min(-1) * size
+
+
+def field_against_cpu(scenes):
+    """The demo's Discrete3DMesh at N_FIELD_POINTS seeded points in the
+    emitter's box on the card against CPU tensors: ids equal but within
+    FACE_TOL of a face of both candidates, values equal where ids are."""
+    verts, tets, field = tet_field(scenes)
+    g = torch.Generator().manual_seed(17)
+    pts = torch.rand((N_FIELD_POINTS, 3), generator=g) * 1.2 - 0.6
+    pc = pts.cuda()
+    ids_gpu, ms = run_ms(lambda: field.locate(pc[:, 0], pc[:, 1], pc[:, 2]))
+    t0 = time.perf_counter()
+    ids_cpu = field.locate(pts[:, 0], pts[:, 1], pts[:, 2])
+    cpu_s = time.perf_counter() - t0
+    vals_gpu = field(pc[:, 0], pc[:, 1], pc[:, 2]).cpu()
+    vals_cpu = field(pts[:, 0], pts[:, 1], pts[:, 2])
+    ids_gpu = ids_gpu.cpu()
+    differ = torch.nonzero(ids_gpu != ids_cpu).squeeze(1).numpy()
+    p64 = pts.numpy().astype(np.float64)
+    worst = 0.0
+    for ids in (ids_gpu.numpy(), ids_cpu.numpy()):
+        sel = differ[ids[differ] >= 0]
+        if sel.size:
+            worst = max(worst, float(near_a_face(verts, tets, ids[sel],
+                                                 p64[sel]).max()))
+    same = ids_gpu == ids_cpu
+    out = dict(points=N_FIELD_POINTS, inside=float((ids_cpu >= 0).float().mean()),
+               ids_differ=int(differ.size), worst_face_distance=worst,
+               values_differ_where_ids_agree=int(
+                   (vals_gpu[same] != vals_cpu[same]).sum()),
+               ms=ms, cpu_s=cpu_s, tets=len(tets),
+               candidates_a_cell=int(field._host["cand"].shape[1]))
+    if (worst > FACE_TOL or out["values_differ_where_ids_agree"]
+            or not 0.1 < out["inside"] < 0.9):
+        fail(f"functions: Discrete3DMesh card against CPU: {out}")
+    return out
+
+
+def interpolators_against_cpu():
+    """Interpolator1D/2D/3DArray, linear and cubic, each extrapolation type,
+    at N_INTERP seeded points (inside, the band, beyond): the card against
+    CPU tensors within INTERP_RTOL (atol INTERP_RTOL of the largest value),
+    NaN where the CPU gives NaN."""
+    from source_tpu_torch.core.math import function as F
+    out, worst = {}, 0.0
+    for nd in (1, 2, 3):
+        rng = np.random.default_rng(nd)
+        axes = [np.cumsum(rng.uniform(0.2, 1.0, 6 + k)) - 2.0 for k in range(nd)]
+        f = rng.normal(size=tuple(len(a) for a in axes))
+        q = [torch.from_numpy(rng.uniform(a[0] - 0.9, a[-1] + 0.9, N_INTERP)
+                              .astype(np.float32)) for a in axes]
+        qc = [x.cuda() for x in q]
+        for interp in ("linear", "cubic"):
+            for extrap in ("none", "nearest", "linear", "quadratic"):
+                if extrap == "quadratic" and (interp != "cubic" or nd > 1):
+                    continue
+                rng_kw = ({"extrapolation_range": 0.5} if nd == 1 else
+                          {f"extrapolation_range_{c}": 0.5 for c in "xyz"[:nd]})
+                fn = getattr(F, f"Interpolator{nd}DArray")(*axes, f, interp,
+                                                           extrap, **rng_kw)
+                a = fn(*qc).cpu().numpy()
+                b = fn(*q).numpy()
+                scale = np.nanmax(np.abs(b))
+                ok = np.array_equal(np.isnan(a), np.isnan(b)) and np.allclose(
+                    a, b, rtol=INTERP_RTOL, atol=INTERP_RTOL * scale,
+                    equal_nan=True)
+                dev = float(np.nanmax(np.abs(a - b)) / scale)
+                worst = max(worst, dev)
+                out[f"{nd}d_{interp}_{extrap}"] = dev
+                if not ok:
+                    fail(f"functions: Interpolator{nd}DArray {interp}/{extrap} "
+                         f"card against CPU: {dev} of the largest value")
+    return dict(points=N_INTERP, worst_rel=worst, cases=out)
+
+
+def samplers_on_the_card():
+    """tests/test_samplers.py's checks on the card, the draws from a CUDA
+    generator: each solid-angle pdf integrates to 1 over the sphere (Monte
+    Carlo over 1 048 576 uniform directions, within 0.01), E[1/pdf] is the
+    support's solid angle (within 0.1 %: exact for these uniform samplers),
+    the surface pdfs 1/area; the pdf integrals within 0.02 (Monte Carlo,
+    5 standard errors of the narrowest cone's)."""
+    from source_tpu_torch.core.math import sampler as S
+    g = torch.Generator(device="cuda").manual_seed(0)
+    d = S.SphereSampler().sample(g, 1 << 20)
+    targets = [((0.0, 0.0, 5.0), 1.0, 1.0), ((1.0, 0.0, 3.0), 0.5, 2.0)]
+    out = {}
+    for name, s in (("sphere", S.SphereSampler()),
+                    ("hemisphere_uniform", S.HemisphereUniformSampler()),
+                    ("hemisphere_cosine", S.HemisphereCosineSampler()),
+                    ("cone30", S.ConeUniformSampler(30.0)),
+                    ("targeted_sphere", S.TargetedSphereSampler(targets)),
+                    ("targeted_hemisphere", S.TargetedHemisphereSampler(targets))):
+        out[name] = float(s.pdf(d).double().mean()) * 4 * math.pi
+    for name, s, sa in (("sphere_inv", S.SphereSampler(), 4 * math.pi),
+                        ("hemisphere_inv", S.HemisphereUniformSampler(), 2 * math.pi),
+                        ("cone45_inv", S.ConeUniformSampler(45.0),
+                         2 * math.pi * (1 - math.cos(math.radians(45))))):
+        x, pdf = s.samples_with_pdfs(g, 1 << 20)
+        out[name] = float((1.0 / pdf.double()).mean()) / sa
+        if x.device.type != "cuda":
+            fail("functions: a sampler drew off the card")
+    for name, s in (("disk", S.DiskSampler3D(2.0)),
+                    ("rectangle", S.RectangleSampler3D(2.0, 1.0)),
+                    ("triangle", S.TriangleSampler3D((0, 0, 0), (1, 0, 0),
+                                                     (0, 1, 0)))):
+        p = s.sample(g, 4096)
+        out[name] = float(s.pdf(p).mean()) * s.area
+    tol = dict(dict.fromkeys(("sphere_inv", "hemisphere_inv", "cone45_inv"),
+                             1e-3),
+               **dict.fromkeys(("disk", "rectangle", "triangle"), 1e-5))
+    bad = {k: v for k, v in out.items() if abs(v - 1.0) > tol.get(k, 0.02)}
+    if bad:
+        fail(f"functions: sampler normalisation off on the card: {bad}")
+    return out
+
+
+def tet_camera(T, O, scenes, world=None, device="cuda", pixels=None):
+    s = TET
+    rgb = O.RGBPipeline2D()
+    cam = demo_pinhole(T, O, scenes.TET_CAMERA, pixels or s["pixels"],
+                       world or scenes.tet_emission_world(s["subdivisions"]),
+                       rgb, device)
+    cam.spectral_bins = s["bins"]
+    cam.pixel_samples = s["spp"]
+    cam.ray_max_depth = s["max_depth"]
+    cam.tile_size = LENS_TILE
+    cam.quiet = True
+    return cam, rgb
+
+
+@contextlib.contextmanager
+def field_meter(world, out):
+    """Wraps the inhomogeneous emitter's closure: the largest batch of
+    points one call evaluates and that call's peak device memory above
+    what was allocated before it."""
+    mat = next(p.material for p in world.primitives
+               if hasattr(p.material, "emission_function"))
+    real = mat.emission_function
+
+    def metered(p, direction, wavelengths):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = real(p, direction, wavelengths)
+        torch.cuda.synchronize()
+        n = int(np.prod(p.shape[:-1]))
+        peak = torch.cuda.max_memory_allocated() - base
+        if n >= out.get("points", 0):
+            out.update(points=n, batch_shape=list(p.shape[:-1]), peak_bytes=peak)
+        out["calls"] = out.get("calls", 0) + 1
+        return res
+
+    mat.emission_function = metered
+    try:
+        yield
+    finally:
+        mat.emission_function = real
+
+
+def phase_functions(T, fused, scenes, bvh):
+    """The function framework on the card: the demo's Discrete3DMesh and the
+    array interpolators against CPU tensors, the samplers' normalisation,
+    and the tetrahedral-emission demo observed at 512x512 by the suite's
+    protocol with exact launches, its field's memory at the observed batch,
+    K6 at its camera rays against its plain versions, and a small
+    observation against CPU tensors."""
+    from source_tpu_torch.optical import observer as O
+    t0 = time.perf_counter()
+    field = field_against_cpu(scenes)
+    interps = interpolators_against_cpu()
+    samplers = samplers_on_the_card()
+    cpu = small_against_cpu(
+        "functions", lambda dev: tet_camera(T, O, scenes, None, dev, (32, 32)),
+        (32, 32), 2, 8)
+    world = scenes.tet_emission_world(TET["subdivisions"])
+    cam, rgb = tet_camera(T, O, scenes, world)
+    rec, meter = {}, {}
+
+    @contextlib.contextmanager
+    def record():
+        with kernel_recorder(rec, busiest=True), field_meter(world, meter):
+            yield
+    demo = observed_demo(T, fused, cam, rgb, "functions", record)
+    if not meter or meter["peak_bytes"] > FIELD_PEAK_LIMIT:
+        fail(f"functions: the field's call at the observed batch takes "
+             f"{meter} (limit {FIELD_PEAK_LIMIT:.0f} bytes)")
+    kernels = recorded_kernels("tet", rec, bvh, mesh_too=False)
+    s = TET
+    emit("functions", gpu=gpu_line(), discrete3d=field, interpolators=interps,
+         samplers=samplers, card_against_cpu=cpu,
+         field_at_observed_batch=dict(meter, limit_bytes=FIELD_PEAK_LIMIT),
+         tet=dict(source=s["source"], pixels=list(s["pixels"]), spp=s["spp"],
+                  spp_cut_from=s["demo_spp"], bins=s["bins"],
+                  max_depth=s["max_depth"], max_iters=cam.max_wavefront_iters,
+                  tile_size=LENS_TILE, tets=field["tets"], **demo),
+         kernels=kernels, wall_s=time.perf_counter() - t0)
+    return dict(kernels=kernels, launches=[p["analytic_bvh_winner"]
+                                           for p in demo["timed_passes"]])
+
+
 def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
                  wave_launches, mesh_rows, mesh_launches, wstep, mods, obs,
-                 queries, lenses):
+                 queries, lenses, meshio, functions):
     """The per-kernel summary at the main paths' shapes (the Cornell box,
     262144 rays, 15 bins; the span kernels over all 24 bounces). Each
     kernel's launches are those of its own route's run of its main path:
@@ -4104,7 +4642,11 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
     bound at those inputs (``at_ray_sample``, ``at_query_fan``,
     ``at_query_hits``); K6's row carries ``lens_launches`` (each timed pass
     of both lens demos) and its time at the Cooke triplet's rays
-    (``at_lens_rays``, phase lenses)."""
+    (``at_lens_rays``, phase lenses). The rows of K6 and K7 carry
+    ``bunny_launches`` (each timed pass of the bunny demo, and the
+    KDTree fan's, phase meshio) and their times at the bunny's camera and
+    third-bounce rays (``at_bunny_rays``); K6's row also ``tet_launches``
+    and ``at_tet_rays`` (phase functions)."""
     src = "source_tpu_torch/csrc/"
     rows = []
     for name, m, line, source, count in (
@@ -4215,13 +4757,25 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
         query_launches=queries["analytic_bvh_winner"],
         at_query_fan=at(queries["k6_row"]),
         lens_launches=lenses["launches"],
-        at_lens_rays={k: at(lenses["k6"][k]) for k in ("camera", "bounce3")})
+        at_lens_rays={k: at(lenses["k6"][k]) for k in ("camera", "bounce3")},
+        bunny_launches=dict(passes=meshio["launches"]["analytic_bvh_winner"],
+                            kdtree_fan=meshio["fan"]["launches"][
+                                "analytic_bvh_winner"]),
+        at_bunny_rays={k: at(meshio["kernels"]["k6"][k])
+                       for k in ("camera", "bounce3")},
+        tet_launches=functions["launches"],
+        at_tet_rays={k: at(functions["kernels"]["k6"][k])
+                     for k in ("camera", "bounce3")})
+    def at_mesh(m):
+        return dict(at(m), max_abs=max(m[k] for k in ("max_abs_dt", "max_abs_du",
+                                                      "max_abs_dv")))
     by_name["mesh_bvh_winner"].update(
         query_launches=queries["mesh_bvh_winner"],
-        at_query_hits=dict(at(queries["k7_row"]),
-                           max_abs=max(queries["k7_row"][k] for k in
-                                       ("max_abs_dt", "max_abs_du",
-                                        "max_abs_dv"))))
+        at_query_hits=at_mesh(queries["k7_row"]),
+        bunny_launches=dict(passes=meshio["launches"]["mesh_bvh_winner"],
+                            kdtree_fan=meshio["fan"]["launches"][
+                                "mesh_bvh_winner"]),
+        at_bunny_rays={k: at_mesh(m) for k, m in meshio["kernels"]["k7"].items()})
     return {"kernels": rows}
 
 
@@ -4231,7 +4785,7 @@ def main():
                     default="env,kernels,furnace,main,grad_kernels,step,"
                             "krng,fusedprof,bvh_kernels,wavefront,"
                             "mesh_kernels,mesh_furnace,mesh,wstep,modifiers,"
-                            "observers,queries,lenses")
+                            "observers,queries,lenses,meshio,functions")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4245,7 +4799,7 @@ def main():
     cornell = grad = launches = step_launches = krng = prof = None
     bvh_row = wave = None
     mesh_rows = mesh_launches = wstep = mods = obs = None
-    queries = lenses = None
+    queries = lenses = meshio = functions = None
     mesh_furnace = False
     if "env" in phases:
         phase_env(fused, analytic_bvh,
@@ -4285,17 +4839,21 @@ def main():
         queries = phase_queries(T, fused, scenes, analytic_bvh)
     if "lenses" in phases:
         lenses = phase_lenses(T, fused, scenes, analytic_bvh)
+    if "meshio" in phases:
+        meshio = phase_meshio(T, fused, scenes, analytic_bvh)
+    if "functions" in phases:
+        functions = phase_functions(T, fused, scenes, analytic_bvh)
     emit("total", seconds=time.perf_counter() - t_start)
     if None in (cornell, grad, launches, step_launches, krng, prof, bvh_row,
                 wave, mesh_rows, mesh_launches, wstep,
-                mods, obs, queries, lenses) or not mesh_furnace:
+                mods, obs, queries, lenses, meshio, functions) or not mesh_furnace:
         print("chip_smoke: partial run, no result", file=sys.stderr)
         return 3
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line(cornell, grad, launches, step_launches,
                                   krng, prof, bvh_row, wave, mesh_rows,
                                   mesh_launches, wstep, mods, obs, queries,
-                                  lenses)),
+                                  lenses, meshio, functions)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

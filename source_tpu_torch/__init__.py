@@ -22,7 +22,11 @@ through ``observe()``, as the reference's users do. The per-ray entry
 points answer too: ``World.hit``/``contains`` and ``Primitive.hit``/
 ``next_intersection``/``contains`` (``core.Ray``, ``core.Intersection``),
 ``optical.Ray.sample`` and ``optical.LoggingRay``, with the spherical
-lenses (``primitive.lens``) and the metal and spectra libraries. Entry
+lenses (``primitive.lens``) and the metal and spectra libraries. Meshes
+load from and save to OBJ, STL, PLY, VTK and RSM files
+(``primitive.mesh``); the function framework (``core.math.function``:
+algebraic fields, array and mesh interpolators) and the samplers
+(``core.math.sampler``) evaluate on tensors, on the card by default. Entry
 points take ``device=`` and default to ``"cuda"``; they raise if no card is
 there.
 """
@@ -30,7 +34,7 @@ there.
 __version__ = "0.1.0"
 
 from .core import (  # noqa: F401
-    AffineMatrix3D, Node, Normal3D, Point2D, Point3D, Vector2D,
+    AffineMatrix3D, Node, Normal3D, Point2D, Point3D, Quaternion, Vector2D,
     Vector3D, World, translate, rotate, rotate_basis, rotate_vector,
     rotate_x, rotate_y, rotate_z,
 )
@@ -38,16 +42,21 @@ from .compiler import CompiledScene, SpectralConfig, compile_scene  # noqa: F401
 from .tracer.wavefront import (  # noqa: F401
     RayConfig, RayState, init_rays, trace_rays, trace_rays_diff, trace_step,
 )
-from .parallel import render_batch, render_loss_and_grads  # noqa: F401
+from .tracer.intersect import intersect_scene  # noqa: F401
+from .parallel import (  # noqa: F401
+    RenderEngine, SerialEngine, render_batch, render_loss_and_grads,
+)
+from .accel import Accelerator, BoundPrimitive, KDTree, Unaccelerated  # noqa: F401
 from .bridge import scene_from_numpy  # noqa: F401
 
 __all__ = [
-    "AffineMatrix3D", "Node", "Normal3D", "Point2D", "Point3D",
+    "AffineMatrix3D", "Node", "Normal3D", "Point2D", "Point3D", "Quaternion",
     "Vector2D", "Vector3D", "World", "translate", "rotate", "rotate_basis",
     "rotate_vector", "rotate_x", "rotate_y", "rotate_z",
     "CompiledScene", "SpectralConfig", "compile_scene",
     "RayConfig", "RayState", "init_rays", "trace_rays", "trace_rays_diff",
-    "trace_step",
-    "render_batch", "render_loss_and_grads",
+    "trace_step", "intersect_scene",
+    "render_batch", "render_loss_and_grads", "RenderEngine", "SerialEngine",
+    "Accelerator", "BoundPrimitive", "KDTree", "Unaccelerated",
     "scene_from_numpy",
 ]

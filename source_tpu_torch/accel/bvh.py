@@ -94,7 +94,10 @@ def _load_native():
 
 def _build_numpy(tri_lo, tri_hi, max_leaf):
     """Median-split fallback with the identical threaded output format, by
-    an explicit stack (a degenerate input makes the split depth O(T))."""
+    an explicit ``Stack`` (core/containers.py): a degenerate input makes the
+    split depth O(T), beyond the interpreter's recursion limit."""
+    from ..core.containers import Stack
+
     n = tri_lo.shape[0]
     cent = 0.5 * (tri_lo + tri_hi)
     order = np.arange(n, dtype=np.int32)
@@ -102,8 +105,9 @@ def _build_numpy(tri_lo, tri_hi, max_leaf):
 
     # ("enter", first, count) emits a node and schedules its children;
     # ("exit", idx) threads the skip pointer once the subtree is complete.
-    stack = [("enter", 0, n)]
-    while stack:
+    stack = Stack()
+    stack.push(("enter", 0, n))
+    while not stack.is_empty():
         item = stack.pop()
         if item[0] == "exit":
             node_skip[item[1]] = len(node_lo)
@@ -114,7 +118,7 @@ def _build_numpy(tri_lo, tri_hi, max_leaf):
         node_lo.append(tri_lo[ids].min(axis=0))
         node_hi.append(tri_hi[ids].max(axis=0))
         node_skip.append(0)
-        stack.append(("exit", idx))
+        stack.push(("exit", idx))
         if count <= max_leaf:
             node_first.append(first)
             node_count.append(count)
@@ -126,8 +130,8 @@ def _build_numpy(tri_lo, tri_hi, max_leaf):
             order[first:first + count] = ids[key]
             mid = count // 2
             # LIFO: push right before left so the left subtree emits first
-            stack.append(("enter", first + mid, count - mid))
-            stack.append(("enter", first, mid))
+            stack.push(("enter", first + mid, count - mid))
+            stack.push(("enter", first, mid))
     return FlatBVH(
         node_lo=np.asarray(node_lo, np.float32),
         node_hi=np.asarray(node_hi, np.float32),

@@ -19,7 +19,9 @@ import torch
 __all__ = [
     "dot",
     "cross",
+    "length",
     "normalise",
+    "orthogonal",
     "select_rows",
     "transform_point",
     "transform_vector",
@@ -30,6 +32,8 @@ __all__ = [
     "lerp",
     "reflect",
     "safe_sqrt",
+    "safe_div",
+    "safe_pow",
 ]
 
 
@@ -37,6 +41,18 @@ def safe_sqrt(x, min_val=0.0):
     """sqrt with a NaN-free backward at x <= min_val (double-where)."""
     ok = x > min_val
     return torch.where(ok, torch.sqrt(torch.where(ok, x, 1.0)), 0.0)
+
+
+def safe_div(a, b, eps=1e-12):
+    """a / b with a NaN-free backward when |b| <= eps (result 0 there)."""
+    ok = torch.abs(b) > eps
+    return torch.where(ok, a / torch.where(ok, b, 1.0), 0.0)
+
+
+def safe_pow(base, exp):
+    """base ** exp with a NaN-free backward at base <= 0 (result 0 there)."""
+    ok = base > 0.0
+    return torch.where(ok, torch.where(ok, base, 1.0) ** exp, 0.0)
 
 
 def select_rows(table, idx):
@@ -60,6 +76,22 @@ def cross(a, b):
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def length(v):
+    """Batched vector length (NaN-free backward at zero length)."""
+    return safe_sqrt(torch.sum(v * v, dim=-1))
+
+
+def orthogonal(v):
+    """An arbitrary unit vector orthogonal to v (vector.pyx orthogonal()):
+    v crossed with the axis of its smallest-magnitude component, the first
+    such axis on a tie."""
+    ax = torch.abs(v)
+    is_min = ax <= torch.amin(ax, dim=-1, keepdim=True)
+    axis = (is_min & (torch.cumsum(is_min.to(torch.int32), dim=-1) == 1)
+            ).to(v.dtype)
+    return normalise(torch.linalg.cross(v, axis, dim=-1))
 
 
 def normalise(v, eps=1e-24):

@@ -1,11 +1,9 @@
 """Polynomial root solvers in component form (quadratic/cubic/quartic).
 
 Counterpart of raysect/core/math/cython/utility.pyx
-``solve_quadratic/solve_cubic/solve_quartic`` (utility.pxd:96-109), reduced
-to what the fused tracer's torus leaf needs: branchless functions on
-per-ray tensors that return (root, valid) pairs. The stacked
-``solve_quadratic/solve_cubic/solve_quartic`` views belong to the streaming
-intersection path and are not part of this package yet.
+``solve_quadratic/solve_cubic/solve_quartic`` (utility.pxd:96-109):
+branchless functions on per-ray tensors that return (root, valid) pairs;
+the component form is what the fused tracer's torus leaf needs.
 
 Every masked lane is sanitized with the double-where pattern *before* any
 sqrt/div/pow, so a masked lane never produces a NaN or an infinity that a
@@ -14,9 +12,12 @@ later select could let through.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["solve_quadratic", "solve_quartic", "solve_quartic_components"]
+__all__ = ["solve_quadratic", "solve_cubic", "solve_quartic",
+           "solve_quartic_components"]
 
 _PI_F32 = 3.14159265358979
 _INF = float("inf")
@@ -65,6 +66,44 @@ def solve_quadratic(a, b, c, eps=1e-30):
     roots = torch.stack([torch.where(v0, lo, _INF), torch.where(v1, hi, _INF)],
                         dim=-1)
     return roots, torch.stack([v0, v1], dim=-1)
+
+
+def solve_cubic(a, b, c, d):
+    """Real roots of a x^3 + b x^2 + c x + d = 0 (a != 0 assumed) as
+    (roots[..., 3], valid[..., 3]), sorted, +inf where not valid: the
+    trigonometric (Viete) method for three real roots, Cardano for one,
+    both branchless."""
+    inv_a = 1.0 / a
+    p = b * inv_a
+    q = c * inv_a
+    r = d * inv_a
+    # depressed cubic t^3 + A t + B, x = t - p/3
+    A = q - p * p / 3.0
+    B = (2.0 * p * p * p - 9.0 * p * q + 27.0 * r) / 27.0
+    disc = (B * B) / 4.0 + (A * A * A) / 27.0
+    shift = -p / 3.0
+    one = disc > 0.0
+
+    # one real root (disc > 0): Cardano
+    sq = _safe_sqrt(torch.where(one, disc, 0.0))
+    single = _cbrt(-B / 2.0 + sq) + _cbrt(-B / 2.0 - sq) + shift
+
+    # three real roots (disc <= 0): trigonometric; requires A < 0
+    Am = torch.clamp(A, max=-1e-24)
+    m = 2.0 * _safe_sqrt(-Am / 3.0)
+    arg = torch.clamp(_safe_div(3.0 * B, Am * m), -0.999999, 0.999999)
+    theta = torch.arccos(arg) / 3.0
+    k = torch.arange(3.0, dtype=theta.dtype, device=theta.device)
+    trip = (m[..., None] * torch.cos(theta[..., None] - 2.0 * math.pi * k / 3.0)
+            + shift[..., None])
+
+    inf = torch.full_like(single, _INF)
+    roots = torch.where(one[..., None], torch.stack([single, inf, inf], dim=-1),
+                        trip)
+    valid = torch.ones(roots.shape, dtype=torch.bool, device=roots.device)
+    valid[..., 1:] = ~one[..., None]
+    roots = torch.sort(torch.where(valid, roots, _INF), dim=-1).values
+    return roots, torch.isfinite(roots)
 
 
 def _acos_poly(x):

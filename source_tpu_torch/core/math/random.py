@@ -3,7 +3,8 @@
 Counterpart of the reference's core/math/random.py (itself the TPU
 replacement of raysect/core/math/random.pyx:31-308). The reference derives
 keys with ``jax.random``; here every draw takes an explicit
-``torch.Generator`` on the tensor's device, and the samplers are pure
+``torch.Generator`` (a draw lands on its device, or on ``device=``, else
+on the card), and the samplers are pure
 functions of their uniforms, so callers choose where the uniforms come
 from (parity tests hand in the reference's).
 
@@ -50,8 +51,16 @@ def _safe_sqrt(x):
 
 
 def _device(generator, device):
-    return device if device is not None else (
-        generator.device if generator is not None else "cpu")
+    """Where a draw lands: ``device``, else the generator's device, else
+    the card (raising where there is none, as the JAX package draws on its
+    default device)."""
+    if device is not None:
+        return device
+    if generator is not None:
+        return generator.device
+    from ...compiler.scene import resolve_device
+
+    return resolve_device("cuda")
 
 
 def uniform(generator=None, shape=(), device=None):

@@ -22,7 +22,12 @@ imaging demos through real optics (demos/observers/): lenses of Schott
 glass, absorbing mounts and a null-material aperture for a
 ``TargetedCCDArray``. ``hitpoints_world`` and ``logging_lens_world`` are the
 worlds of the per-ray query demos (demos/core/ray_intersection_hitpoints.py,
-demos/optics/logging_trajectories.py).
+demos/optics/logging_trajectories.py). ``bunny_world`` (demos/materials/
+bunny.py: a glass mesh written to PLY and read back, in a CSG glass light
+box) and ``tet_emission_world`` (demos/materials/
+tetrahedra_mesh_emission.py: an inhomogeneous volume whose density is a
+``Discrete3DMesh``) are the two demos of the mesh IO and the function
+framework.
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ __all__ = ["cornell_box", "zoo", "furnace", "csg_world", "prism_world",
            "cube_mesh", "blob_mesh", "watertight_cases", "MESH_CAMERA",
            "modifier_world", "UserLambert", "UserMirror", "glow",
            "cooke_triplet_world", "metal_lens_world", "hitpoints_world",
-           "logging_lens_world",
+           "logging_lens_world", "bunny_mesh", "bunny_world", "BUNNY_CAMERA",
+           "icosphere_tets", "tet_emission_world", "TET_CAMERA",
            "pinhole_rays", "camera_rays", "scatter_rays", "field_rays"]
 
 
@@ -791,3 +797,141 @@ def logging_lens_world():
     Box(Point3D(-0.05, -0.05, 0.062), Point3D(0.05, 0.05, 0.063),
         parent=world, material=AbsorbingSurface())
     return world
+
+
+def bunny_mesh(subdiv=5):
+    """The bunny demo's stand-in for the Stanford scan
+    (demos/materials/bunny.py ``_stand_in_mesh``): ``icosphere`` of radius
+    0.05 m displaced along its normals by a low-frequency bump and lifted
+    0.055 m onto the pedestal, in float32 as the demo computes it; 20 480
+    triangles at 5 subdivisions. Returns (vertices, triangles)."""
+    v, f = icosphere(subdiv, radius=0.05)
+    r = np.linalg.norm(v, axis=1, keepdims=True)
+    n = v / r
+    bump = (0.22 * np.sin(6.0 * n[:, 0]) * np.cos(4.0 * n[:, 1])
+            + 0.15 * np.sin(5.0 * n[:, 2] + 1.7)) * 0.05
+    v = v + n * bump[:, None] * 0.35
+    v[:, 1] += 0.055
+    return v, f
+
+
+def bunny_world(small=False):
+    """The glass bunny on an illuminated glass pedestal
+    (demos/materials/bunny.py ``build_world``) with the demo's stand-in for
+    the Stanford scan, which the repository does not hold (``bunny_mesh``,
+    5 subdivisions, 3 when ``small``) written with ``export_ply`` and read
+    back with ``import_ply``, in N-BK7; inside a light box of a Lambert CSG
+    enclosure, an N-BK7 CSG glass shell and a D65 volume emitter."""
+    import os
+    import tempfile
+
+    from .primitive.mesh import export_ply, import_ply
+
+    world = World()
+    v, f = bunny_mesh(3 if small else 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bunny_stand_in.ply")
+        export_ply(Mesh(v, f), path)
+        import_ply(path, parent=world, material=schott("N-BK7"))
+
+    # light box (reference bunny.py:40-70)
+    padding = 1e-5
+    enclosure_thickness = 0.001 + padding
+    glass_thickness = 0.003
+    light_box = Node(parent=world)
+    e, g = enclosure_thickness, glass_thickness
+    Subtract(
+        Box(Point3D(-0.10 - e, -0.02 - e, -0.10 - e),
+            Point3D(0.10 + e, 0.0, 0.10 + e)),
+        Box(Point3D(-0.10 - padding, -0.02 - padding, -0.10 - padding),
+            Point3D(0.10 + padding, 0.001, 0.10 + padding)),
+        material=Lambert(ConstantSF(0.2)), parent=light_box)
+    Subtract(
+        Box(Point3D(-0.10, -0.02, -0.10), Point3D(0.10, 0.0, 0.10)),
+        Box(Point3D(-0.10 + g, -0.02 + g, -0.10 + g),
+            Point3D(0.10 - g, -g, 0.10 - g)),
+        material=schott("N-BK7"), parent=light_box)
+    Box(Point3D(-0.10 + g + padding, -0.02 + g + padding, -0.10 + g + padding),
+        Point3D(0.10 - g - padding, -g - padding, 0.10 - g - padding),
+        material=UniformVolumeEmitter(d65_white, 50), parent=light_box)
+    return world
+
+
+# the bunny demo's camera: PinholeCamera (fov 45) at
+# translate(0, 0.16, -0.4) * rotate(0, -12, 0)
+BUNNY_CAMERA = dict(fov=45.0, position=(0.0, 0.16, -0.4),
+                    rotation=(0.0, -12.0, 0.0))
+
+
+def icosphere_tets(subdiv=2, radius=0.5):
+    """An icosphere tetrahedralised against its centre
+    (demos/materials/tetrahedra_mesh_emission.py ``icosphere_tets``, whose
+    float64 midpoints this follows bit for bit): every surface triangle
+    forms a tetrahedron with the centre vertex, the last. Returns
+    (vertices f64[V,3], tetrahedra i32[T,4])."""
+    g = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = np.array([
+        [-1, g, 0], [1, g, 0], [-1, -g, 0], [1, -g, 0],
+        [0, -1, g], [0, 1, g], [0, -1, -g], [0, 1, -g],
+        [g, 0, -1], [g, 0, 1], [-g, 0, -1], [-g, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = _icosphere64(0)[1].astype(np.int32)
+    for _ in range(subdiv):
+        cache, new_faces = {}, []
+        verts_list = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = verts_list[a] + verts_list[b]
+                m /= np.linalg.norm(m)
+                cache[key] = len(verts_list)
+                verts_list.append(m)
+            return cache[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, np.int32)
+    verts = np.concatenate([verts * radius, np.zeros((1, 3))])
+    tets = np.concatenate(
+        [faces, np.full((len(faces), 1), len(verts) - 1, np.int32)], axis=1)
+    return verts, tets
+
+
+def tet_emission_world(subdiv=2):
+    """Tetrahedral-mesh volume emission
+    (demos/materials/tetrahedra_mesh_emission.py ``build_world``): an
+    ``InhomogeneousVolumeEmitter`` box whose emission density is a
+    ``Discrete3DMesh`` over ``icosphere_tets`` (per-tet constants, brighter
+    toward +y; 0 outside the mesh), marched at 24 samples, over a
+    rough-titanium floor. The march hands the field tensors, and it
+    evaluates on their device."""
+    from .core.math.function import Discrete3DMesh
+    from .optical.library import RoughTitanium
+
+    world = World()
+    verts, tets = icosphere_tets(subdiv, radius=0.5)
+    centroids = verts[tets].mean(axis=1)
+    tet_data = 1.0 + 4.0 * np.clip(centroids[:, 1] + 0.5, 0, 1)
+    field = Discrete3DMesh(verts, tets, tet_data, limit=False,
+                           default_value=0.0)
+
+    def emission(p, direction, wavelengths):
+        dens = field(p[..., 0], p[..., 1], p[..., 2])
+        return dens[..., None].expand(dens.shape + (wavelengths.shape[0],))
+
+    Box(Point3D(-0.6, -0.6, -0.6), Point3D(0.6, 0.6, 0.6), parent=world,
+        transform=translate(0, 0.62, 0),
+        material=InhomogeneousVolumeEmitter(
+            emission, integrator=NumericalIntegrator(max_samples=24)))
+    Box(Point3D(-100, -0.1, -100), Point3D(100, -0.01, 100), parent=world,
+        material=RoughTitanium(0.1))
+    return world
+
+
+# the tetrahedral-emission demo's camera: PinholeCamera, fov 50, at
+# translate(0, 0.75, -2.2)
+TET_CAMERA = dict(fov=50.0, position=(0.0, 0.75, -2.2))

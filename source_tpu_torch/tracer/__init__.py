@@ -1,3 +1,10 @@
-from .wavefront import RayConfig, RayState, init_rays, trace_rays, trace_step
+from .intersect import HitRecord, intersect_scene, entity_contains
+from .wavefront import (
+    RayConfig, RayState, init_rays, trace_rays, trace_rays_diff, trace_step,
+)
 
-__all__ = ["RayConfig", "RayState", "init_rays", "trace_rays", "trace_step"]
+__all__ = [
+    "HitRecord", "intersect_scene", "entity_contains",
+    "RayConfig", "RayState", "init_rays", "trace_rays", "trace_rays_diff",
+    "trace_step",
+]
