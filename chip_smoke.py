@@ -19,8 +19,9 @@ there over the live lanes binned by the counting-sort kernel, held to its
 plain version and timed with the adjoint at every bounce), and both again
 with the span kernels drawing their own uniforms (``rng="kernel"``, Philox in
 the kernel: phase ``krng``); the per-bounce kernel beside its two profiling
-variants, decisions replayed and loads and stores alone, over the flagship's
-24 bounces (phase ``fusedprof``); and the CSG demo
+variants, decisions replayed and loads and stores alone, each in place on
+the live lists of the flagship's forward per-bounce route (17 launches),
+and in lane order beside them (phase ``fusedprof``); and the CSG demo
 (demos/csg.py) at 512x512 rays, 15 bins, max_depth 24, 32 iterations, with
 compaction, through ``render_batch`` on the wavefront route; the mesh demo
 (demos/mesh_render.py) at 512x384 rays, 12 bins, max_depth 12, 16
@@ -305,8 +306,12 @@ def short_list_gate(T, fused, scenes):
     lists, in place and out of place, equal the lane-order chain bit for bit
     (state and bitfields) at every bounce, and each list is the set of lanes
     alive after its bounce; K3 (whose tail spreads a short step over all of
-    its grid's warps) ends in the same state and bitfields. Fails too if no
-    bounce of a case ran such a list. Returns each case's list lengths."""
+    its grid's warps) ends in the same state and bitfields. At every bounce,
+    on the in-place chain's list and from a copy of the entry state, K9 in
+    place and out of place equals K1 bit for bit and lists K1's survivors,
+    and K10 returns the entry state, a zero bitfield and the entry's live
+    lanes. Fails too if no bounce of a case ran such a list. Returns each
+    case's list lengths."""
     cfg = T.RayConfig(max_depth=FLAGSHIP["max_depth"], max_iters=24)
     box = T.compile_scene(scenes.cornell_box(glass=True),
                           T.SpectralConfig(375.0, 740.0, FLAGSHIP["bins"]))
@@ -332,11 +337,14 @@ def short_list_gate(T, fused, scenes):
         live_in = live_out = None
         listed, ref_bits_all = [], []
         for k in range(u.shape[0]):
+            entry, listed_in = ref, live_in
             ref, ref_bits = fused.fused_bounce_fwd(spec, tab, desc, ref, u[k])
             ref_bits_all.append(ref_bits)
             inp, b_in, live_in = fused.fused_bounce_fwd(
                 spec, tab, desc, inp, u[k], live=live_in, survivors=True,
                 in_place=True)
+            profiling_on_lists(f"short lists {name}", fused, spec, tab, desc,
+                               entry, u[k], ref_bits, listed_in, ref)
             outp, b_out, live_out = fused.fused_bounce_fwd(
                 spec, tab, desc, outp, u[k], live=live_out, survivors=True)
             if not (bitwise_equal(inp, ref) and torch.equal(b_in, ref_bits)):
@@ -362,6 +370,42 @@ def short_list_gate(T, fused, scenes):
                  f"grid's {warps} warps ({listed})")
         cases.append(dict(scene=name, n=N, warps=warps, listed=listed))
     return cases
+
+
+def list_lanes(live):
+    """The lanes of a live list (lanes, count) on the device, sorted."""
+    return torch.sort(live[0][:int(live[1][0])]).values
+
+
+def profiling_on_lists(where, fused, spec, tab, desc, entry, u, bits, live,
+                       after, out_of_place=True):
+    """K9 and K10 on the live list ``live`` of the lanes alive in ``entry``
+    (None at a first bounce), in place from a copy and (``out_of_place``)
+    out of place: K9,
+    replaying ``bits`` (K1's), ends in K1's state ``after`` bit for bit and
+    lists the lanes alive in it; K10 returns ``entry`` bit for bit, a zero
+    bitfield and the lanes alive in ``entry``."""
+    want9 = fused.live_lanes_plain(after["aux"])
+    want10 = fused.live_lanes_plain(entry["aux"])
+    for in_place in (True, False) if out_of_place else (True,):
+        how = "in place" if in_place else "out of place"
+        st = {k: v.clone() for k, v in entry.items()} if in_place else entry
+        r_st, r_live = fused.fused_bounce_replay(
+            spec, tab, desc, st, u, bits, live=live, survivors=True,
+            in_place=in_place)
+        if not bitwise_equal(r_st, after):
+            fail(f"{where}: K9 on lists {how} differs from K1")
+        if not torch.equal(list_lanes(r_live), want9):
+            fail(f"{where}: K9's list {how} is not K1's survivors")
+        st = {k: v.clone() for k, v in entry.items()} if in_place else entry
+        i_st, i_bits, i_live = fused.fused_bounce_io(
+            spec, tab, desc, st, u, live=live, survivors=True,
+            in_place=in_place)
+        if not bitwise_equal(i_st, entry) or bool(i_bits.any()):
+            fail(f"{where}: K10 on lists {how} does not return its input "
+                 "with a zero bitfield")
+        if not torch.equal(list_lanes(i_live), want10):
+            fail(f"{where}: K10's list {how} is not the lanes alive on entry")
 
 
 def replay_gate(where, fused, scene, cfg, st0, n_steps, u=None, key=None):
@@ -663,9 +707,15 @@ def phase_env(fused, bvh, extra_fwd_bins=()):
                     ln.split(":", 1)[-1].strip())
         return out
 
+    # the per-bounce loop's three instantiations, k_bounce<MODE>
+    fwd = ptxas(logs[0])
+    per_bounce = {k: next((v for name, v in fwd.items()
+                           if f"k_bounceILi{mode}EE" in name), None)
+                  for k, mode in (("K1", 0), ("K9", 1), ("K10", 2))}
     emit("env", gpu=gpu_line(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=round(build_s, 2),
-         nvcc_flags=" ".join(fused.NVCC_FLAGS), ptxas_fwd_b15=ptxas(logs[0]),
+         nvcc_flags=" ".join(fused.NVCC_FLAGS),
+         ptxas_per_bounce_b15=per_bounce, ptxas_fwd_b15=fwd,
          ptxas_fwd_b5=ptxas(logs[1]), spill_at=fused.SPILL_AT,
          ptxas_bwd_b15=ptxas(logs[2]), ptxas_bwd_b5=ptxas(logs[3]),
          ptxas_bvh=ptxas(logs[4]),
@@ -1691,103 +1741,190 @@ def sass_counts(lib_path, kernel):
 
 
 def phase_fusedprof(T, fused, scenes):
-    """The flagship's per-bounce route over its 24 bounces, three ways: the
-    chain of fused_bounce_fwd (K1), of fused_bounce_replay (K9) replaying
-    K1's bitfields, and of fused_bounce_io (K10). K9 must equal K1 bit for
-    bit at every bounce and its plain version within the kernels'
-    tolerances, K10 its input. Per bounce the median time of each: K1 - K9
-    is the decision path, K9 - K10 the arithmetic, K10 the load/store and
-    launch floor."""
+    """The flagship's forward per-bounce route as
+    ``fused_forward_span(span="perbounce")`` runs it: from ``pack_state``,
+    K1 (fused_bounce_fwd) in place on the previous bounce's live list until
+    every lane is dead (17 launches at max_depth 16), each bounce's entry
+    state, list and bitfield kept. At each bounce K9 (fused_bounce_replay,
+    K1's bits) and K10 (fused_bounce_io) run in place on the same list from
+    a copy of the entry state: K9 must equal K1 bit for bit on every state
+    key and list K1's survivors, with K1's count; K10 must return the entry
+    state bit for bit, a zero bitfield and the entry's live lanes. Then K9
+    and K10 in lane order, out of place: K9 equal to K9 on lists, K10 to its
+    input; K9 against ``bounce_core`` replay and K10 against its plain
+    version. Launches counted exactly for each pass. Per bounce the device
+    time of each kernel in place on its list from a fresh copy (made outside
+    the timed window): K1 - K9 is the decision path, K9 - K10 the
+    arithmetic, K10 the load/store and launch floor, summed over the route
+    beside each kernel's bound over the live lanes. Beside them the same
+    three in lane order, out of place, on the same entry states (the split
+    of a K1 schedule no route launches, as the profiling kernels ran before
+    they took K1's)."""
     bins = FLAGSHIP["bins"]
     scene, cfg, o, d, u_fixed, _same_u = flagship(T, fused, scenes)
     n = o.shape[0]
     spec, entry = fused.scene_tables(scene, cfg)
     desc, tab = entry["desc"], fused.forward_table(scene, spec, entry)
-    st0 = fused.pack_state(T.init_rays(o, d, bins,
-                                       spectral_dtype=cfg.spectral_dtype))
+    state = T.init_rays(o, d, bins, spectral_dtype=cfg.spectral_dtype)
     u_p = fused.pack_u(u_fixed)
 
-    # the three chains, each kernel's counts set to 0 just before and read
-    # just after
-    reset_counts(fused)
-    states, bits = [st0], []
-    for u in u_p:
-        new, b = fused.fused_bounce_fwd(spec, tab, desc, states[-1], u)
-        states.append(new)
-        bits.append(b)
-    replayed = [st0]
-    for k, u in enumerate(u_p):
-        replayed.append(fused.fused_bounce_replay(spec, tab, desc, replayed[-1],
-                                                  u, bits[k]))
-    io = [st0]
-    io_bits = []
-    for u in u_p:
-        new, b = fused.fused_bounce_io(spec, tab, desc, io[-1], u)
-        io.append(new)
-        io_bits.append(b)
-    torch.cuda.synchronize()
-    counts = read_counts(fused)
-    want = dict(NO_LAUNCHES, fused_bounce_fwd=cfg.max_iters,
-                fused_bounce_replay=cfg.max_iters,
-                fused_bounce_io=cfg.max_iters)
-    if counts != want:
-        fail(f"fusedprof: launches {counts}, want {want}")
-    for k in range(cfg.max_iters):
-        if not bitwise_equal(replayed[k + 1], states[k + 1]):
-            fail(f"fusedprof: K9 differs from K1 at bounce {k}")
-        if not bitwise_equal(io[k + 1], st0) or bool(io_bits[k].any()):
-            fail(f"fusedprof: K10 does not return its input at bounce {k}")
+    def copy(st):
+        return {k: v.clone() for k, v in st.items()}
 
-    # K9 and K10 against their plain versions at every bounce
+    # the route itself, for its launches; then the same loop, each bounce's
+    # entry kept
+    reset_counts(fused)
+    fused.fused_forward_span(tab, desc, spec, state, u_fixed, span="perbounce")
+    torch.cuda.synchronize()
+    route = read_counts(fused)["fused_bounce_fwd"]
+    reset_counts(fused)
+    st, live = fused.pack_state(state), None
+    entries, lists, bits, pushed = [], [], [], []
+    for u in u_p:
+        if not bool((st["aux"][0] > 0.5).any()):
+            break
+        entries.append(copy(st))
+        lists.append(live)
+        st, b, live = fused.fused_bounce_fwd(spec, tab, desc, st, u, live=live,
+                                             survivors=True, in_place=True)
+        bits.append(b)
+        pushed.append(int(live[1][0]))
+    afters = entries[1:] + [st]
+    n_route = len(entries)
+    torch.cuda.synchronize()
+    counts = dict(route=read_counts(fused))
+    if (counts["route"] != dict(NO_LAUNCHES, fused_bounce_fwd=route)
+            or n_route != route):
+        fail(f"fusedprof: the route launched {route} K1, its loop "
+             f"{counts['route']}")
+
+    # K9 and K10 on the route's lists, in place, from copies
+    reset_counts(fused)
+    for k in range(n_route):
+        profiling_on_lists(f"fusedprof, bounce {k}", fused, spec, tab, desc,
+                           entries[k], u_p[k], bits[k], lists[k], afters[k],
+                           out_of_place=False)
+    torch.cuda.synchronize()
+    counts["on_lists"] = read_counts(fused)
+
+    # in lane order, out of place; and against the plain versions
+    reset_counts(fused)
     worst = dict(max_abs=0.0, max_rel=0.0)
     every = torch.ones(n, dtype=torch.bool, device="cuda")
     none = torch.zeros(n, dtype=torch.bool, device="cuda")
     plain_ms = dict(replay=[], io=[])
-    for k, u in enumerate(u_p):
+    for k in range(n_route):
+        u, e = u_p[k], entries[k]
+        replayed = fused.fused_bounce_replay(spec, tab, desc, e, u, bits[k])
+        if not bitwise_equal(replayed, afters[k]):
+            fail(f"fusedprof: K9 in lane order differs from K9 on lists at "
+                 f"bounce {k}")
+        io, io_bits = fused.fused_bounce_io(spec, tab, desc, e, u)
+        if not bitwise_equal(io, e) or bool(io_bits.any()):
+            fail(f"fusedprof: K10 in lane order does not return its input at "
+                 f"bounce {k}")
         ref, ms = run_ms(lambda: fused.bounce_replay_plain(
-            spec, tab, states[k], u, bits[k]))
+            spec, tab, e, u, bits[k]))
         plain_ms["replay"].append(ms)
-        dev = compare_state(replayed[k + 1], ref, every, none, TORUS_BOUNCE)
-        if not dev.pop("ok") or not torch.equal(replayed[k + 1]["aux"],
-                                                ref["aux"]):
+        dev = compare_state(afters[k], ref, every, none, TORUS_BOUNCE)
+        if not dev.pop("ok") or not torch.equal(afters[k]["aux"], ref["aux"]):
             fail(f"fusedprof: K9 against bounce_core replay at bounce {k}: {dev}")
         worst = {m: max(worst[m], dev[m]) for m in worst}
         (io_ref, io_ref_bits), ms = run_ms(lambda: fused.bounce_io_plain(
-            spec, tab, states[k], u))
+            spec, tab, e, u))
         plain_ms["io"].append(ms)
-        got, got_bits = fused.fused_bounce_io(spec, tab, desc, states[k], u)
-        if not (bitwise_equal(got, io_ref) and torch.equal(got_bits, io_ref_bits)):
+        if not (bitwise_equal(io, io_ref) and torch.equal(io_bits, io_ref_bits)):
             fail(f"fusedprof: K10 against its plain version at bounce {k}")
+    torch.cuda.synchronize()
+    counts["lane_order"] = read_counts(fused)
+    want = dict(route=dict(NO_LAUNCHES, fused_bounce_fwd=n_route),
+                on_lists=dict(NO_LAUNCHES, fused_bounce_replay=n_route,
+                              fused_bounce_io=n_route),
+                lane_order=dict(NO_LAUNCHES, fused_bounce_replay=n_route,
+                                fused_bounce_io=n_route))
+    if counts != want:
+        fail(f"fusedprof: launches {counts}, want {want}")
 
-    # per-bounce device times, the three kernels in turns on the same state;
-    # K1 also as the kernels phase times it (back-to-back launches, the host
-    # enqueueing while the card runs), to show what the host's pace adds
-    per = dict(k1=[], k9=[], k10=[], k1_host_paced=[])
-    for k, u in enumerate(u_p):
-        st, b = states[k], bits[k]
-        per["k1"].append(device_ms(
-            lambda: fused.fused_bounce_fwd(spec, tab, desc, st, u)))
-        per["k9"].append(device_ms(
-            lambda: fused.fused_bounce_replay(spec, tab, desc, st, u, b)))
-        per["k10"].append(device_ms(
-            lambda: fused.fused_bounce_io(spec, tab, desc, st, u)))
-        per["k1_host_paced"].append(time_ms(
-            lambda: fused.fused_bounce_fwd(spec, tab, desc, st, u), 20))
-    med = {k: float(np.median(v)) for k, v in per.items()}
-    alive = [int((s["aux"][0] > 0.5).sum()) for s in states[:-1]]
+    # per-bounce device times: on the lists in place, each kernel from a
+    # fresh copy of the entry state made before its timed window; in lane
+    # order out of place on the same entries; and K1's route as one chain
+    def in_place_ms(k, call):
+        def make():
+            box = copy(entries[k])
+            return [lambda: call(box)]
+        return device_ms_chain(make)[0]
+
+    per = dict(k1=[], k9=[], k10=[], k1_lane_order=[], k9_lane_order=[],
+               k10_lane_order=[])
+    for k in range(n_route):
+        u, e, lst, b = u_p[k], entries[k], lists[k], bits[k]
+        per["k1"].append(in_place_ms(k, lambda box: fused.fused_bounce_fwd(
+            spec, tab, desc, box, u, live=lst, survivors=True, in_place=True)))
+        per["k9"].append(in_place_ms(k, lambda box: fused.fused_bounce_replay(
+            spec, tab, desc, box, u, b, live=lst, survivors=True,
+            in_place=True)))
+        per["k10"].append(in_place_ms(k, lambda box: fused.fused_bounce_io(
+            spec, tab, desc, box, u, live=lst, survivors=True, in_place=True)))
+        per["k1_lane_order"].append(device_ms(
+            lambda: fused.fused_bounce_fwd(spec, tab, desc, e, u)))
+        per["k9_lane_order"].append(device_ms(
+            lambda: fused.fused_bounce_replay(spec, tab, desc, e, u, b)))
+        per["k10_lane_order"].append(device_ms(
+            lambda: fused.fused_bounce_io(spec, tab, desc, e, u)))
+
+    def route_pass():
+        box = dict(st=copy(entries[0]), live=None)
+
+        def call(k):
+            def fn():
+                box["st"], _b, box["live"] = fused.fused_bounce_fwd(
+                    spec, tab, desc, box["st"], u_p[k], live=box["live"],
+                    survivors=True, in_place=True)
+            return fn
+        return [call(k) for k in range(n_route)]
+    k1_chain = device_ms_chain(route_pass)
+
+    # each kernel's bound at each bounce, over the lanes alive on entry: the
+    # table, their state in and out and uniforms, the bitfield (K1 and K10
+    # write all N; K9 reads the live lanes'), the list read (none at the
+    # first bounce) and the lanes pushed; operations: the segments' bounce
+    # (K1), the replayed bounce (K9), K10's sums (4 B + 29 a lane)
+    alive = [int((e["aux"][0] > 0.5).sum()) for e in entries]
     segs = [int((b & 1).sum()) for b in bits]
-    state_bytes = 4 * n * (8 + 2 * bins)
     table_bytes = 4 * (tab.numel() + desc.numel())
-    # bounds at the first bounce, where every ray is alive
-    b9 = bound(table_bytes + 2 * state_bytes + 4 * n
-               + 4 * fused.N_UNIFORMS * alive[0],
-               segs[0] * fused.bounce_flops(spec, replay=True))
-    b10 = bound(table_bytes + 2 * state_bytes + 4 * n
-                + 4 * fused.N_UNIFORMS * alive[0], 0)
-    b1 = bound(table_bytes + 2 * state_bytes + 4 * n
-               + 4 * fused.N_UNIFORMS * alive[0],
-               segs[0] * fused.bounce_flops(spec))
-    sass = sass_counts(fused.build_library(bins)[0], "k_bounce_io")
+    bounds = dict(k1=[], k9=[], k10=[])
+    for k in range(n_route):
+        a = alive[k]
+        common = (table_bytes + 4 * a * (2 * (8 + 2 * bins) + fused.N_UNIFORMS)
+                  + (4 * a if lists[k] is not None else 0))
+        bounds["k1"].append(bound(common + 4 * n + 4 * pushed[k],
+                                  segs[k] * fused.bounce_flops(spec)))
+        bounds["k9"].append(bound(common + 4 * a + 4 * pushed[k],
+                                  segs[k] * fused.bounce_flops(spec,
+                                                               replay=True)))
+        bounds["k10"].append(bound(common + 4 * n + 4 * a,
+                                   a * (4 * bins + 29)))
+
+    def total(rows):
+        t = {m: sum(r[m] for r in rows)
+             for m in ("bytes_ms", "f32_ms", "int32_ms", "bound_ms")}
+        return dict(t, bound_by="bytes" if t["bytes_ms"] >= max(
+            t["f32_ms"], t["int32_ms"]) else "operations")
+
+    route_bound = {k: total(v) for k, v in bounds.items()}
+    sums = {k: sum(v) for k, v in per.items()}
+
+    def split_of(k1, k9, k10):
+        """K1's time a bounce split by K9 and K10."""
+        return dict(decision_ms=[a - b for a, b in zip(k1, k9)],
+                    arithmetic_ms=[a - b for a, b in zip(k9, k10)],
+                    floor_ms=list(k10))
+
+    split = split_of(per["k1"], per["k9"], per["k10"])
+    split_lane_order = split_of(per["k1_lane_order"], per["k9_lane_order"],
+                                per["k10_lane_order"])
+    # K10 is k_bounce<IO>, IO = 2 (csrc/fused_kernels.cu)
+    sass = sass_counts(fused.build_library(bins)[0], "k_bounceILi2EE")
     if sass is not None and (sass["ldg"] < 8 + 2 * bins + fused.N_UNIFORMS
                              or sass["stg"] < 8 + 2 * bins + 1):
         fail(f"fusedprof: K10's SASS has fewer global loads or stores than "
@@ -1795,20 +1932,35 @@ def phase_fusedprof(T, fused, scenes):
     rows = {
         "fused_bounce_replay": dict(
             max_abs=worst["max_abs"], max_rel=worst["max_rel"],
-            ms=per["k9"][0], ms_median_over_bounces=med["k9"],
-            plain_ms=plain_ms["replay"][0], **b9),
+            ms=sums["k9"], first_bounce_ms=per["k9"][0],
+            lane_order_ms=sums["k9_lane_order"],
+            plain_ms=sum(plain_ms["replay"]),
+            bound_ms=route_bound["k9"]["bound_ms"],
+            bound_by=route_bound["k9"]["bound_by"],
+            first_bounce_bound_ms=bounds["k9"][0]["bound_ms"]),
         "fused_bounce_io": dict(
-            max_abs=0.0, ms=per["k10"][0], ms_median_over_bounces=med["k10"],
-            plain_ms=plain_ms["io"][0], **b10),
+            max_abs=0.0, ms=sums["k10"], first_bounce_ms=per["k10"][0],
+            lane_order_ms=sums["k10_lane_order"],
+            plain_ms=sum(plain_ms["io"]),
+            bound_ms=route_bound["k10"]["bound_ms"],
+            bound_by=route_bound["k10"]["bound_by"],
+            first_bounce_bound_ms=bounds["k10"][0]["bound_ms"]),
     }
-    emit("fusedprof", rays=n, bins=bins, bounces=cfg.max_iters,
+    emit("fusedprof", rays=n, bins=bins, route_launches=n_route,
          launches=counts, k9_equals_k1=True, k10_identity=True,
-         per_bounce_ms=per, alive=alive, segments=segs,
-         median_ms=med, decision_ms=med["k1"] - med["k9"],
-         arithmetic_ms=med["k9"] - med["k10"], floor_ms=med["k10"],
-         k1_bound_ms=b1["bound_ms"], k1_bound_by=b1["bound_by"],
-         k10_sass=sass, kernels=rows)
-    return dict(rows=rows, launches=counts)
+         alive=alive, pushed=pushed, segments=segs,
+         listed=[None if lst is None else int(lst[1][0]) for lst in lists],
+         per_bounce_ms=per, split_by_bounce=split,
+         split_by_bounce_lane_order=split_lane_order,
+         route_ms=sums, k1_route_chain_ms=sum(k1_chain),
+         k1_route_chain_by_bounce_ms=k1_chain,
+         **{k: sum(v) for k, v in split.items()},
+         lane_order_split={k: sum(v) for k, v in split_lane_order.items()},
+         route_bound=route_bound,
+         bound_by_bounce_ms={k: [r["bound_ms"] for r in v]
+                             for k, v in bounds.items()},
+         plain_ms_by_bounce=plain_ms, k10_sass=sass, kernels=rows)
+    return dict(rows=rows, launches=counts["on_lists"])
 
 
 def min_advance(o):
@@ -5054,7 +5206,9 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
     launches as often again), ``render_loss_and_grads`` for the adjoints;
     the kernel-RNG branches of the span kernels those of ``render_batch``
     and ``render_loss_and_grads`` with ``rng="kernel"``, and the profiling
-    kernels those of the fusedprof chains. The rows of K6 and K7 also carry
+    kernels those of the flagship's forward per-bounce route (phase
+    fusedprof: one a bounce, on the route's live lists, in place; their
+    times and bounds summed over it). The rows of K6 and K7 also carry
     ``step_launches``: their launches in one differentiable wavefront step at
     remat_block 1 (phases wstep and modifiers). Every row carries
     ``observer_launches``: its kernel's launches in one observe() pass of
@@ -5126,7 +5280,9 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
             launches=count[base], max_abs_err=m["max_abs"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None))
-    # the profiling kernels at the flagship's first bounce
+    # the profiling kernels summed over the flagship's forward per-bounce
+    # route, in place on its live lists (time, plain version and bound),
+    # with the first bounce and the lane-order sum beside them
     for name, line in (("fused_bounce_replay", 1375), ("fused_bounce_io", 1423)):
         m = prof["rows"][name]
         rows.append(dict(
@@ -5134,7 +5290,10 @@ def kernels_line(cornell, grad, launches, step_launches, krng, prof, bvh_row,
             replaces=f"source_tpu/tracer/pallas_fused.py:{line}",
             launches=prof["launches"][name], max_abs_err=m["max_abs"],
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=None))
+            bound_by=m["bound_by"], library_ms=None,
+            first_bounce_ms=m["first_bounce_ms"],
+            first_bounce_bound_ms=m["first_bounce_bound_ms"],
+            lane_order_ms=m["lane_order_ms"]))
     # the analytic-BVH kernel on the CSG demo's camera rays; its launches
     # are those of the wavefront route's render_batch of the CSG demo
     rows.append(dict(

@@ -8,13 +8,15 @@
 // (_span_fwd_call -> _span_fwd_kernel), with both of its uniform sources:
 // uniforms read from device memory, or drawn in the kernel (the TPU kernel's
 // _gen_u branch) by Philox4x32-10 (philox.cuh) from an i32[2] seed on the
-// device. fused_bounce_replay and fused_bounce_io replace its two profiling
-// variants of the per-bounce kernel (_bounce_replay_call -> _replay_kernel
-// and _bounce_io_call -> _io_kernel, which benchmarks/fusedprof.py drives):
-// the bounce with its decisions replayed from a bitfield, and the bounce's
-// loads and stores with no arithmetic. Together with K1 in lane order they
-// split a bounce's time into its decision path, its arithmetic and its
-// load/store and launch floor.
+// device. fused_bounce_replay (K9) and fused_bounce_io (K10) replace its two
+// profiling variants of the per-bounce kernel (_bounce_replay_call ->
+// _replay_kernel and _bounce_io_call -> _io_kernel, which
+// benchmarks/fusedprof.py drives): the bounce with its decisions replayed
+// from a bitfield, and the bounce's loads and stores with no arithmetic.
+// The three are instantiations of one bounce loop (k_bounce<MODE>), so each
+// runs the lanes K1 runs on K1's schedule, with the same loads, stores and
+// list pushes: K1 - K9 is the decision path, K9 - K10 the arithmetic, K10
+// the load/store and launch floor of the bounce that a route launches.
 //
 // Layout: SoA state (o[3,N] d[3,N] thr[B,N] rad[B,N] aux[2,N], one ray per
 // column) so that a warp's loads and stores in lane order are contiguous.
@@ -62,7 +64,9 @@
 //   per-bounce route (out of place) passes no list. With no list,
 //   or a list of GATHER_PCT percent of the lanes or more (the count decides
 //   on the device), it runs in lane order, where a gather would read no
-//   fewer sectors of the SoA state.
+//   fewer sectors of the SoA state. K9 and K10 take the same list and run
+//   the same schedule, so that their times split the route's K1 and not a
+//   lane-order kernel that no route launches.
 // With the kernel RNG the span kernel reads no uniforms and spends about 300
 // integer operations a ray and a bounce on Philox instead (three calls of ten
 // rounds), which moves its bound from bytes toward operations.
@@ -96,6 +100,9 @@ constexpr int SPILL_AT = 24;
 constexpr int MIN_BLOCKS = 4;
 constexpr int SPREAD_WARPS = 2048;
 constexpr int GATHER_PCT = 50;
+// the per-bounce loop's third mode, beside fb::DECIDE (K1) and fb::REPLAY
+// (K9): K10, the loads and stores alone
+constexpr int IO = 2;
 using ls::FULL;
 // a lane's row of the span kernel: o d thr rad alive depth, padded
 constexpr int ROW_W = ls::round4(8 + 2 * fb::NB);
@@ -181,8 +188,50 @@ __device__ __forceinline__ long long globaltimer() {
   return t;
 }
 
-// One bounce. u is f32[10, N]; bits is i32[N]. A lane dead on entry keeps
-// its state and gets a zero bitfield. With ``live`` null, or a list that
+// K10's stand-in for the bounce: the lane's uniforms (alive on entry) are
+// loaded, and every store of the lane depends on every load of its thread
+// through ``z = |s| * 0``, which the compiler cannot fold under IEEE
+// arithmetic (s may be NaN or infinite; no fast math); x - (+0) is x bit for
+// bit, -0 included, so the state comes out as it went in.
+__device__ __forceinline__ void io_touch(fb::Ray& ray, int i, int N,
+                                         const float* __restrict__ u,
+                                         const float* s_tab, const int* s_desc,
+                                         bool entered) {
+  float s = s_tab[0] + (float)s_desc[0];
+  if (entered) {
+#pragma unroll
+    for (int k = 0; k < fb::N_UNIFORMS; ++k) s = s + u[k * N + i];
+  }
+#pragma unroll
+  for (int b = 0; b < fb::NB; ++b) s = s + ray.thr[b] + ray.rad[b];
+  s = s + ray.o.x + ray.o.y + ray.o.z + ray.d.x + ray.d.y + ray.d.z +
+      ray.alive + ray.depth;
+  const float z = fabsf(s) * 0.0f;
+  ray.o = fb::V3{ray.o.x - z, ray.o.y - z, ray.o.z - z};
+  ray.d = fb::V3{ray.d.x - z, ray.d.y - z, ray.d.z - z};
+#pragma unroll
+  for (int b = 0; b < fb::NB; ++b) {
+    ray.thr[b] = ray.thr[b] - z;
+    ray.rad[b] = ray.rad[b] - z;
+  }
+  ray.alive = ray.alive - z;
+  ray.depth = ray.depth - z;
+}
+
+// One bounce of the per-bounce route, in one of three modes, each inlined
+// once:
+// - fb::DECIDE (K1, fused_bounce_fwd): the bounce, its choices returned in
+//   ``bits``.
+// - fb::REPLAY (K9, fused_bounce_replay): the bounce's arithmetic with the
+//   choices taken from ``bits_in`` (what K1 returned for this state and
+//   these uniforms; fb::bounce_as<REPLAY>); writes no bitfield. Its plain
+//   version is ``bounce_core`` with ``bits``. A lane that enters dead keeps
+//   its state, as in K1: the TPU kernel evaluates such lanes too (with their
+//   bitfield 0, a result nothing reads), here they are skipped.
+// - IO (K10, fused_bounce_io): K1's loads and stores and nothing else
+//   (io_touch); a zero bitfield; every lane alive on entry survives.
+// u is f32[10, N]; bits is i32[N]. A lane dead on entry keeps its state and
+// gets a zero bitfield (K9 writes none). With ``live`` null, or a list that
 // holds GATHER_PCT percent of the lanes or more, thread i runs lane i (a
 // dead lane is copied through out of place, not stored in place: o2 == o,
 // every output its input). Else the list (the lanes alive on entry, in any
@@ -194,15 +243,16 @@ __device__ __forceinline__ long long globaltimer() {
 // receives the lanes alive after the bounce, in the order of the atomics,
 // and next_n[0] (zeroed by the caller) their count. No __restrict__ on the
 // state: in place the outputs alias the inputs.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-k_bounce_fwd(const float* __restrict__ tab, int n_tab,
-             const int* __restrict__ desc, int n_desc, const float* o,
-             const float* d, const float* thr, const float* rad,
-             const float* aux, float* o2, float* d2, float* thr2, float* rad2,
-             float* aux2, const float* __restrict__ u, int* bits,
-             const int* __restrict__ live, const int* __restrict__ live_n,
-             int* __restrict__ next, int* __restrict__ next_n, int N,
-             fb::Cfg cfg) {
+k_bounce(const float* __restrict__ tab, int n_tab,
+         const int* __restrict__ desc, int n_desc, const float* o,
+         const float* d, const float* thr, const float* rad, const float* aux,
+         float* o2, float* d2, float* thr2, float* rad2, float* aux2,
+         const float* __restrict__ u, const int* __restrict__ bits_in,
+         int* bits, const int* __restrict__ live,
+         const int* __restrict__ live_n, int* __restrict__ next,
+         int* __restrict__ next_n, int N, fb::Cfg cfg) {
   extern __shared__ float smem[];
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -218,7 +268,7 @@ k_bounce_fwd(const float* __restrict__ tab, int n_tab,
       fb::Ray ray;
       load_ray(ray, t, N, o, d, thr, rad, aux);
       store_ray(ray, t, N, o2, d2, thr2, rad2, aux2);
-      bits[t] = 0;
+      if constexpr (MODE != fb::REPLAY) bits[t] = 0;
     }
     // a block whose first entry is past the list has none
     if ((long long)blockIdx.x * (blockDim.x / 32) * per >= n_live) return;
@@ -240,15 +290,21 @@ k_bounce_fwd(const float* __restrict__ tab, int n_tab,
       load_ray(ray, i, N, o, d, thr, rad, aux);
       const bool entered = ray.alive > 0.5f;
       int bf = 0;
-      if (entered) {
+      if constexpr (MODE == IO) {
+        io_touch(ray, i, N, u, s_tab, s_desc, entered);
+        survives = entered;
+      } else if (entered) {
         float uu[fb::N_UNIFORMS];
 #pragma unroll
         for (int k = 0; k < fb::N_UNIFORMS; ++k) uu[k] = u[k * N + i];
-        bf = fb::bounce(s_tab, s_desc, cfg, ray, uu);
+        if constexpr (MODE == fb::DECIDE)
+          bf = fb::bounce(s_tab, s_desc, cfg, ray, uu);
+        else
+          fb::bounce_as<fb::REPLAY>(s_tab, s_desc, cfg, ray, uu, bits_in[i]);
         survives = ray.alive > 0.5f;
       }
       if (entered || !in_place) store_ray(ray, i, N, o2, d2, thr2, rad2, aux2);
-      bits[i] = bf;
+      if constexpr (MODE != fb::REPLAY) bits[i] = bf;
     }
     if (next != nullptr) {
       const int at = ls::warp_push(survives, next_n);
@@ -396,89 +452,37 @@ k_span_fwd(const float* __restrict__ tab, int n_tab,
   }
 }
 
-// K1 with its decisions replayed from ``bits_in`` (i32[N], what
-// fused_bounce_fwd returned for this state and these uniforms): the same
-// launch, loads and stores, and the bounce's arithmetic without the code that
-// decides (fb::bounce_as<REPLAY>). Its plain version is ``bounce_core`` with
-// ``bits``. A ray that enters dead keeps its state, as in k_bounce_fwd; the
-// TPU kernel evaluates such lanes too (with their bitfield 0, a result
-// nothing reads), here they skip. Writes no bitfield.
-__global__ void __launch_bounds__(THREADS)
-k_bounce_replay(const float* __restrict__ tab, int n_tab,
-                const int* __restrict__ desc, int n_desc,
-                const float* __restrict__ o, const float* __restrict__ d,
-                const float* __restrict__ thr, const float* __restrict__ rad,
-                const float* __restrict__ aux, float* __restrict__ o2,
-                float* __restrict__ d2, float* __restrict__ thr2,
-                float* __restrict__ rad2, float* __restrict__ aux2,
-                const float* __restrict__ u,
-                const int* __restrict__ bits_in, int N, fb::Cfg cfg) {
-  extern __shared__ float smem[];
-  float* s_tab = smem;
-  int* s_desc = reinterpret_cast<int*>(smem + n_tab);
-  load_tables(s_tab, s_desc, tab, n_tab, desc, n_desc);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  fb::Ray ray;
-  load_ray(ray, i, N, o, d, thr, rad, aux);
-  if (ray.alive > 0.5f) {
-    float uu[fb::N_UNIFORMS];
-#pragma unroll
-    for (int k = 0; k < fb::N_UNIFORMS; ++k) uu[k] = u[k * N + i];
-    fb::bounce_as<fb::REPLAY>(s_tab, s_desc, cfg, ray, uu, bits_in[i]);
-  }
-  store_ray(ray, i, N, o2, d2, thr2, rad2, aux2);
-}
-
-// K1's loads and stores and nothing else: the table and descriptor copied to
-// shared memory, the state and (for a ray alive on entry) the uniforms
-// loaded, the state and a zero bitfield stored, as k_bounce_fwd does. Every
-// store depends on every load of its thread through ``z = |s| * 0``, which
-// the compiler cannot fold under IEEE arithmetic (s may be NaN or infinite;
-// no fast math), and x - (+0) is x bit for bit, -0 included: the output state
-// equals the input.
-__global__ void __launch_bounds__(THREADS)
-k_bounce_io(const float* __restrict__ tab, int n_tab,
-            const int* __restrict__ desc, int n_desc,
-            const float* __restrict__ o, const float* __restrict__ d,
-            const float* __restrict__ thr, const float* __restrict__ rad,
-            const float* __restrict__ aux, float* __restrict__ o2,
-            float* __restrict__ d2, float* __restrict__ thr2,
-            float* __restrict__ rad2, float* __restrict__ aux2,
-            const float* __restrict__ u, int* __restrict__ bits, int N) {
-  extern __shared__ float smem[];
-  float* s_tab = smem;
-  int* s_desc = reinterpret_cast<int*>(smem + n_tab);
-  load_tables(s_tab, s_desc, tab, n_tab, desc, n_desc);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  fb::Ray ray;
-  load_ray(ray, i, N, o, d, thr, rad, aux);
-  float s = s_tab[0] + (float)s_desc[0];
-  if (ray.alive > 0.5f) {
-#pragma unroll
-    for (int k = 0; k < fb::N_UNIFORMS; ++k) s = s + u[k * N + i];
-  }
-#pragma unroll
-  for (int b = 0; b < fb::NB; ++b) s = s + ray.thr[b] + ray.rad[b];
-  s = s + ray.o.x + ray.o.y + ray.o.z + ray.d.x + ray.d.y + ray.d.z +
-      ray.alive + ray.depth;
-  const float z = fabsf(s) * 0.0f;
-  ray.o = fb::V3{ray.o.x - z, ray.o.y - z, ray.o.z - z};
-  ray.d = fb::V3{ray.d.x - z, ray.d.y - z, ray.d.z - z};
-#pragma unroll
-  for (int b = 0; b < fb::NB; ++b) {
-    ray.thr[b] = ray.thr[b] - z;
-    ray.rad[b] = ray.rad[b] - z;
-  }
-  ray.alive = ray.alive - z;
-  ray.depth = ray.depth - z;
-  store_ray(ray, i, N, o2, d2, thr2, rad2, aux2);
-  bits[i] = 0;
-}
-
 size_t smem_bytes(int n_tab, int n_desc) {
   return sizeof(float) * (size_t)n_tab + sizeof(int) * (size_t)n_desc;
+}
+
+// The launch of k_bounce<MODE> behind the three per-bounce entry points:
+// ``bits`` (null for K9, which writes none) zeroed first where the kernel
+// runs its list in place (the lanes not in it get no store), ``next_n``
+// zeroed where a list is pushed.
+template <int MODE>
+int launch_bounce(const float* tab, int n_tab, const int* desc, int n_desc,
+                  const float* o, const float* d, const float* thr,
+                  const float* rad, const float* aux, float* o2, float* d2,
+                  float* thr2, float* rad2, float* aux2, const float* u,
+                  const int* bits_in, int* bits, const int* live,
+                  const int* live_n, int* next, int* next_n, int N,
+                  fb::Cfg cfg, void* stream) {
+  if (N <= 0) return 0;
+  size_t smem = smem_bytes(n_tab, n_desc);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (bits != nullptr && live != nullptr && o2 == o)
+    err = cudaMemsetAsync(bits, 0, sizeof(int) * (size_t)N, st);
+  if (err == cudaSuccess && next != nullptr)
+    err = cudaMemsetAsync(next_n, 0, sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = (N + THREADS - 1) / THREADS;
+  k_bounce<MODE><<<blocks, THREADS, smem, st>>>(
+      tab, n_tab, desc, n_desc, o, d, thr, rad, aux, o2, d2, thr2, rad2, aux2,
+      u, bits_in, bits, live, live_n, next, next_n, N, cfg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -497,11 +501,14 @@ extern "C" long long fused_span_fwd_floats(int N) {
 // (48 leaves and 48 materials at 15 bins are under 12 KB); a larger table is
 // refused with cudaErrorInvalidValue.
 //
-// fused_bounce_fwd: ``live`` null: every lane, in lane order; else the lanes
-// alive on entry, ``live_n[0]`` of them, as the previous launch's ``next``
-// wrote them. ``next`` (may be null) receives the lanes alive after the
-// bounce and ``next_n[0]`` their count. In place when o2 == o (every output
-// pointer its input).
+// fused_bounce_fwd (K1), fused_bounce_replay (K9) and fused_bounce_io
+// (K10) take the same schedule: ``live`` null: every lane, in lane order;
+// else the lanes alive on entry, ``live_n[0]`` of them, as a previous
+// launch's ``next`` wrote them. ``next`` (may be null) receives the lanes
+// alive after the bounce (K10: those alive on entry, which it leaves alive)
+// and ``next_n[0]`` their count. In place when o2 == o (every output
+// pointer its input). K9 reads the bitfield ``bits_in`` that K1 returned for
+// this state and these uniforms and writes none; K10 takes no configuration.
 extern "C" int fused_bounce_fwd(
     const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
     const float* d, const float* thr, const float* rad, const float* aux,
@@ -509,23 +516,39 @@ extern "C" int fused_bounce_fwd(
     int* bits, const int* live, const int* live_n, int* next, int* next_n,
     int N, int max_depth, int ext_min_depth, float p_ext, float survive,
     float w_imp, float one_m_w_imp, float max_distance, void* stream) {
-  if (N <= 0) return 0;
-  size_t smem = smem_bytes(n_tab, n_desc);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaSuccess;
-  if (live != nullptr && o2 == o)  // lanes not in the list: a zero bitfield
-    err = cudaMemsetAsync(bits, 0, sizeof(int) * (size_t)N, st);
-  if (err == cudaSuccess && next != nullptr)
-    err = cudaMemsetAsync(next_n, 0, sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
   fb::Cfg cfg{max_depth, ext_min_depth, p_ext, survive, w_imp, one_m_w_imp,
               max_distance};
-  int blocks = (N + THREADS - 1) / THREADS;
-  k_bounce_fwd<<<blocks, THREADS, smem, st>>>(
-      tab, n_tab, desc, n_desc, o, d, thr, rad, aux, o2, d2, thr2, rad2, aux2,
-      u, bits, live, live_n, next, next_n, N, cfg);
-  return (int)cudaGetLastError();
+  return launch_bounce<fb::DECIDE>(tab, n_tab, desc, n_desc, o, d, thr, rad,
+                                   aux, o2, d2, thr2, rad2, aux2, u, nullptr,
+                                   bits, live, live_n, next, next_n, N, cfg,
+                                   stream);
+}
+
+extern "C" int fused_bounce_replay(
+    const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
+    const float* d, const float* thr, const float* rad, const float* aux,
+    float* o2, float* d2, float* thr2, float* rad2, float* aux2, const float* u,
+    const int* bits_in, const int* live, const int* live_n, int* next,
+    int* next_n, int N, int max_depth, int ext_min_depth, float p_ext,
+    float survive, float w_imp, float one_m_w_imp, float max_distance,
+    void* stream) {
+  fb::Cfg cfg{max_depth, ext_min_depth, p_ext, survive, w_imp, one_m_w_imp,
+              max_distance};
+  return launch_bounce<fb::REPLAY>(tab, n_tab, desc, n_desc, o, d, thr, rad,
+                                   aux, o2, d2, thr2, rad2, aux2, u, bits_in,
+                                   nullptr, live, live_n, next, next_n, N, cfg,
+                                   stream);
+}
+
+extern "C" int fused_bounce_io(
+    const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
+    const float* d, const float* thr, const float* rad, const float* aux,
+    float* o2, float* d2, float* thr2, float* rad2, float* aux2, const float* u,
+    int* bits, const int* live, const int* live_n, int* next, int* next_n,
+    int N, void* stream) {
+  return launch_bounce<IO>(tab, n_tab, desc, n_desc, o, d, thr, rad, aux, o2,
+                           d2, thr2, rad2, aux2, u, nullptr, bits, live,
+                           live_n, next, next_n, N, fb::Cfg{}, stream);
 }
 
 // fused_span_fwd: ``seed`` null: the uniforms ``u`` f32[n_steps, 10, N] are
@@ -564,38 +587,4 @@ extern "C" int fused_span_fwd(
                                        : (const void*)k_span_fwd<false>;
   return (int)ls::launch_cooperative(kernel, THREADS, smem,
                                      (N + THREADS - 1) / THREADS, args, st);
-}
-
-extern "C" int fused_bounce_replay(
-    const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
-    const float* d, const float* thr, const float* rad, const float* aux,
-    float* o2, float* d2, float* thr2, float* rad2, float* aux2, const float* u,
-    const int* bits_in, int N, int max_depth, int ext_min_depth, float p_ext,
-    float survive, float w_imp, float one_m_w_imp, float max_distance,
-    void* stream) {
-  if (N <= 0) return 0;
-  size_t smem = smem_bytes(n_tab, n_desc);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  fb::Cfg cfg{max_depth, ext_min_depth, p_ext, survive, w_imp, one_m_w_imp,
-              max_distance};
-  int blocks = (N + THREADS - 1) / THREADS;
-  k_bounce_replay<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tab, n_tab, desc, n_desc, o, d, thr, rad, aux, o2, d2, thr2, rad2, aux2,
-      u, bits_in, N, cfg);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fused_bounce_io(
-    const float* tab, int n_tab, const int* desc, int n_desc, const float* o,
-    const float* d, const float* thr, const float* rad, const float* aux,
-    float* o2, float* d2, float* thr2, float* rad2, float* aux2, const float* u,
-    int* bits, int N, void* stream) {
-  if (N <= 0) return 0;
-  size_t smem = smem_bytes(n_tab, n_desc);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  int blocks = (N + THREADS - 1) / THREADS;
-  k_bounce_io<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tab, n_tab, desc, n_desc, o, d, thr, rad, aux, o2, d2, thr2, rad2, aux2,
-      u, bits, N);
-  return (int)cudaGetLastError();
 }

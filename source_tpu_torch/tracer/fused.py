@@ -38,8 +38,11 @@ One function, its adjoint, and six kernels:
     kernels of that name: ``fused_bounce_fwd`` with its decisions replayed
     from a bitfield (plain version ``bounce_replay_plain``, ``bounce_core``
     with ``bits``), and its loads and stores with no bounce (plain version
-    ``bounce_io_plain``, a copy). Their times beside ``fused_bounce_fwd``'s
-    split it into decision path, arithmetic and load/store floor.
+    ``bounce_io_plain``, a copy). They are the same bounce loop as
+    ``fused_bounce_fwd`` in other modes and take its schedule (``live``,
+    ``survivors``, ``in_place``), so their times beside its time on the
+    forward route split it into decision path, arithmetic and load/store
+    floor.
 
 Every wrapper takes the plain version for CPU tensors and launches the kernel
 — or raises — for CUDA tensors; each counts its launches.
@@ -1555,15 +1558,17 @@ def _library(bins, which="fwd"):
         tail = [i, i, f, f, f, f, f, p]
         if which == "fwd":
             # tab, n_tab, desc, n_desc, [state in x5], [state out x5], u,
-            # (seed, start,) bits, (live lanes in: list, count; out: list,
-            # count | rows, int workspace, trace,) N, (n_steps,) tail; the
-            # I/O kernel takes no configuration
+            # (seed, start,) bits (the replay's in, the others' out), (live
+            # lanes in: list, count; out: list, count | rows, int
+            # workspace, trace,) N, (n_steps,) tail; the I/O kernel takes
+            # no configuration
             head = [p, i, p, i] + [p] * 10
-            lib.fused_bounce_fwd.argtypes = head + [p, p, p, p, p, p, i] + tail
+            per_bounce = head + [p] * 6 + [i]
+            lib.fused_bounce_fwd.argtypes = per_bounce + tail
             lib.fused_span_fwd.argtypes = (head + [p, p, i, p, p, p, p, i, i]
                                            + tail)
-            lib.fused_bounce_replay.argtypes = head + [p, p, i] + tail
-            lib.fused_bounce_io.argtypes = head + [p, p, i, p]
+            lib.fused_bounce_replay.argtypes = per_bounce + tail
+            lib.fused_bounce_io.argtypes = per_bounce + [p]
             lib.fused_span_fwd_words.argtypes = [i, i]
             lib.fused_span_fwd_floats.argtypes = [i]
             lib.fused_span_fwd_words.restype = ctypes.c_longlong
@@ -1871,6 +1876,19 @@ def _check_live(live, N, dev):
                              "a previous fused_bounce_fwd returned")
 
 
+def _schedule(live, survivors, N, dev):
+    """The per-bounce kernels' schedule arguments for CUDA tensors: the list
+    ``live`` (checked) and, with ``survivors``, a fresh list for the lanes
+    pushed. Returns (the fresh list or None, the four pointers)."""
+    if live is not None:
+        _check_live(live, N, dev)
+    nxt = ((torch.empty((N,), dtype=torch.int32, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+           if survivors else None)
+    return nxt, [_ptr(t) for t in (*(live or (None, None)),
+                                   *(nxt or (None, None)))]
+
+
 def fused_bounce_fwd(spec, tab, desc, st, u, live=None, survivors=False,
                      in_place=False):
     """One bounce for every ray: ``st`` packed state, ``u`` f32[10, N].
@@ -1895,17 +1913,11 @@ def fused_bounce_fwd(spec, tab, desc, st, u, live=None, survivors=False,
         return (new, bits, _live_list_plain(new["aux"])) if survivors \
             else (new, bits)
     _check_state(spec, st, {"u": u, "tab": tab})
-    dev = tab.device
-    if live is not None:
-        _check_live(live, N, dev)
-    bits = torch.empty((N,), dtype=torch.int32, device=dev)
-    nxt = ((torch.empty((N,), dtype=torch.int32, device=dev),
-            torch.empty((1,), dtype=torch.int32, device=dev))
-           if survivors else (None, None))
+    bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
+    nxt, sched = _schedule(live, survivors, N, tab.device)
     out = _launch("fused_bounce_fwd", spec, tab, desc, st,
-                  [u.data_ptr(), bits.data_ptr(),
-                   *(_ptr(t) for t in (live or (None, None))),
-                   *(_ptr(t) for t in nxt), N], in_place=in_place)
+                  [u.data_ptr(), bits.data_ptr(), *sched, N],
+                  in_place=in_place)
     fused_bounce_fwd.launches += 1
     return (out, bits, nxt) if survivors else (out, bits)
 
@@ -1956,42 +1968,55 @@ def fused_span_fwd(spec, tab, desc, st, u_all=None, seed=None, start=0,
     return out, bits
 
 
-def fused_bounce_replay(spec, tab, desc, st, u, bits):
+def fused_bounce_replay(spec, tab, desc, st, u, bits, live=None,
+                        survivors=False, in_place=False):
     """``fused_bounce_fwd`` with its decisions replayed: the bitfield ``bits``
     i32[N] that ``fused_bounce_fwd`` returned for ``st`` and ``u`` fixes
     every choice it stores, and the kernel runs the bounce's arithmetic
     without the code that makes them (the other leaves' hit tests among it).
     A profiling kernel: its time beside ``fused_bounce_fwd``'s is the cost of
     the decision path. Returns the new packed state, equal to
-    ``fused_bounce_fwd``'s."""
+    ``fused_bounce_fwd``'s. ``live``, ``survivors`` and ``in_place`` are
+    ``fused_bounce_fwd``'s schedule, with its meaning: given its bits, the
+    survivors listed are its survivors."""
     N = st["o"].shape[1]
     _check_u(u, N)
     if not tab.is_cuda:
-        return bounce_replay_plain(spec, tab, st, u, bits)
+        new = bounce_replay_plain(spec, tab, st, u, bits)
+        return (new, _live_list_plain(new["aux"])) if survivors else new
     _check_state(spec, st, {"u": u, "tab": tab})
     _check_bits(bits, (N,), tab.device)
+    nxt, sched = _schedule(live, survivors, N, tab.device)
     out = _launch("fused_bounce_replay", spec, tab, desc, st,
-                  [u.data_ptr(), bits.data_ptr(), N])
+                  [u.data_ptr(), bits.data_ptr(), *sched, N],
+                  in_place=in_place)
     fused_bounce_replay.launches += 1
-    return out
+    return (out, nxt) if survivors else out
 
 
-def fused_bounce_io(spec, tab, desc, st, u):
+def fused_bounce_io(spec, tab, desc, st, u, live=None, survivors=False,
+                    in_place=False):
     """The loads and stores of ``fused_bounce_fwd`` and no bounce: the same
-    launch, tables in shared memory, state and uniforms read, state and a
-    bitfield written. A profiling kernel: its time is the floor under
-    ``fused_bounce_fwd``'s. Returns (the state, equal to ``st``, bits of
-    zeros)."""
+    launch and schedule, tables in shared memory, state and uniforms read,
+    state and a bitfield written. A profiling kernel: its time is the floor
+    under ``fused_bounce_fwd``'s. Returns (the state, equal to ``st``, bits
+    of zeros). ``live``, ``survivors`` and ``in_place`` as in
+    ``fused_bounce_fwd``; the survivors listed are the lanes alive on entry,
+    which the kernel leaves alive."""
     N = st["o"].shape[1]
     _check_u(u, N)
     if not tab.is_cuda:
-        return bounce_io_plain(spec, tab, st, u)
+        new, bits = bounce_io_plain(spec, tab, st, u)
+        return (new, bits, _live_list_plain(new["aux"])) if survivors \
+            else (new, bits)
     _check_state(spec, st, {"u": u, "tab": tab})
     bits = torch.empty((N,), dtype=torch.int32, device=tab.device)
+    nxt, sched = _schedule(live, survivors, N, tab.device)
     out = _launch("fused_bounce_io", spec, tab, desc, st,
-                  [u.data_ptr(), bits.data_ptr(), N], cfg=False)
+                  [u.data_ptr(), bits.data_ptr(), *sched, N], cfg=False,
+                  in_place=in_place)
     fused_bounce_io.launches += 1
-    return out, bits
+    return (out, bits, nxt) if survivors else (out, bits)
 
 
 fused_bounce_fwd.launches = 0

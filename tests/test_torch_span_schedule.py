@@ -177,30 +177,52 @@ def test_live_lanes_plain(scene):
     assert bool((lanes[live.numel():] == -1).all())
 
 
-@pytest.mark.parametrize("in_place", [False, True])
-def test_perbounce_chain_with_live_lists(scene, in_place):
-    """The chain of ``fused_bounce_fwd`` handing each bounce the previous
-    one's survivors equals the chain without lists (on CPU tensors the plain
-    version: the list changes nothing), and the survivors are exactly the
-    lanes alive after each bounce."""
+# the per-bounce kernels on the forward route's schedule: K1, K9 (given the
+# chain's bits) and K10; K1's cases are named by in_place alone, as
+# before K9 and K10 joined them
+PER_BOUNCE = ("fused_bounce_fwd", "fused_bounce_replay", "fused_bounce_io")
+
+
+@pytest.mark.parametrize("kernel,in_place", [
+    pytest.param(k, p, id=str(p) if k == PER_BOUNCE[0]
+                 else f"{k.removeprefix('fused_bounce_')}-{p}")
+    for k in PER_BOUNCE for p in (False, True)])
+def test_perbounce_chain_with_live_lists(scene, kernel, in_place):
+    """Along the chain of ``fused_bounce_fwd``, each bounce's kernel handed
+    the list of the lanes alive on entry (the previous bounce's survivors),
+    ``survivors=True`` and ``in_place`` returns the state (and bitfield) it
+    returns without them (on CPU tensors the plain version: the list changes
+    nothing), and lists exactly the lanes alive after its bounce (for
+    ``fused_bounce_io``, which changes no lane, those alive on entry).
+    ``fused_bounce_replay`` replays the chain's own bits. No kernel
+    launches."""
     spec, tab, desc, st0 = (scene[k] for k in ("spec", "tab", "desc", "st0"))
     u, _, _ = reference(scene, "host")
-    plain, listed, live = st0, {k: v.clone() for k, v in st0.items()}, None
+    wrapper = getattr(fused, kernel)
+    plain, live = st0, None
     thinned = False
     for k in range(STEPS):
-        plain, want = fused.fused_bounce_fwd(spec, tab, desc, plain, u[k])
-        listed, bits, live = fused.fused_bounce_fwd(
-            spec, tab, desc, listed, u[k], live=live, survivors=True,
-            in_place=in_place)
-        assert torch.equal(bits, want)
+        entry = plain
+        plain, want = fused.fused_bounce_fwd(spec, tab, desc, entry, u[k])
+        extra = (want,) if kernel == "fused_bounce_replay" else ()
+        ref = wrapper(spec, tab, desc, entry, u[k], *extra)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        *got, (lanes, count) = wrapper(
+            spec, tab, desc, {key: v.clone() for key, v in entry.items()},
+            u[k], *extra, live=live, survivors=True, in_place=in_place)
+        assert len(got) == len(ref)
         for key in fused._STATE_KEYS:
-            assert torch.equal(listed[key], plain[key])
-        lanes, count = live
+            assert torch.equal(got[0][key], ref[0][key])
+        if len(ref) > 1:
+            assert torch.equal(got[1], ref[1])
+        after = entry if kernel == "fused_bounce_io" else got[0]
         n = int(count[0])
-        assert torch.equal(lanes[:n], fused.live_lanes_plain(plain["aux"]))
+        assert torch.equal(lanes[:n], fused.live_lanes_plain(after["aux"]))
         thinned = thinned or 0 < n < N
+        live = (lanes, count) if kernel != "fused_bounce_io" \
+            else fused._live_list_plain(plain["aux"])
     assert thinned
-    assert fused.fused_bounce_fwd.launches == 0
+    assert all(getattr(fused, w).launches == 0 for w in PER_BOUNCE)
 
 
 def test_python_spill_at_is_the_kernels():
